@@ -1,0 +1,22 @@
+"""ssdn_tpu_torch — the PyTorch / CUDA (NVIDIA Hopper) port of ``ssdn_tpu``.
+
+A second package beside the JAX one, module for module: the JAX package
+is the reference and this package imports nothing of it (nor of JAX).
+What is ported so far is the serving path — pretrained denoise:
+
+  config.py   a copy of the JAX package's config (the zoo JSON parses the same)
+  zoo.py      reads the bundled ``ssdn_tpu/pretrained/*.npz`` artifacts by path
+  ops/        shifted conv / pool / upsample, rotation fold (torch ops)
+  kernels/    hand-written CUDA kernels K1 (shifted conv) and K2 (1x1 head),
+              each with its plain PyTorch twin; built lazily with nvcc
+  models/     the blind-spot U-Net forward; weights carried from JAX trees
+  estimator/  the Bayesian posterior means (fp32)
+  infer/      full-image denoise
+  cli/        ``python -m ssdn_tpu_torch.cli.denoise``
+
+Tensors at the public functions are NHWC, as in the JAX package; inside,
+NCHW in ``channels_last`` memory. Entry points run on the GPU unless the
+caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,133 @@
+"""Denoise real images with a pretrained model, on the GPU (port of
+``ssdn_tpu/cli/denoise.py``, its ``--pretrained`` / ``--tiled full`` path).
+
+The inputs are treated as ALREADY-NOISY photographs, denoised with the
+model's Bayesian posterior mean, and written back out as PNG.
+
+Examples:
+  # gaussian model, noise level known (sigma in 0..255 units)
+  python -m ssdn_tpu_torch.cli.denoise --pretrained gauss25_rgb \
+      --input noisy_photos/ --output denoised/ --param 25
+
+  # blind model (the network estimates the noise level itself), on the CPU
+  python -m ssdn_tpu_torch.cli.denoise --pretrained gauss5_50_blind_rgb \
+      --input shot.png --output out/ --device cpu
+
+Training workdirs (``--workdir``) and tiled inference (``--tiled
+sequential|sharded``) are not ported yet: they raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from ssdn_tpu_torch.config import NoiseModel
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--workdir", default=None,
+                   help="training workdir (not ported yet: needs the "
+                        "trainer's checkpoints)")
+    p.add_argument("--pretrained", default=None,
+                   help="bundled pretrained model name (see "
+                        "ssdn_tpu_torch.zoo.available()) or an exported "
+                        ".npz path")
+    p.add_argument("--input", required=True,
+                   help="a noisy image file or a folder of them")
+    p.add_argument("--output", required=True, help="output directory")
+    p.add_argument("--param", type=float, default=None,
+                   help="noise parameter for KNOWN-noise models: gaussian "
+                        "sigma in 0..255 units / poisson lambda / impulse "
+                        "alpha (default: the training config's value); "
+                        "ignored by BLIND models, which estimate it")
+    p.add_argument("--tiled", default="full",
+                   choices=["full", "sequential", "sharded"],
+                   help="only 'full' is ported so far")
+    p.add_argument("--suffix", default="_denoised",
+                   help="appended to each output filename stem")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the model runs (default: the GPU)")
+    return p
+
+
+def default_param(cfg) -> float:
+    n = cfg.noise
+    if n.model == NoiseModel.GAUSSIAN:
+        return 0.5 * (n.sigma_min + n.sigma_max)
+    if n.model == NoiseModel.POISSON:
+        return n.lam
+    return n.alpha
+
+
+def to_internal_param(cfg, value: float) -> np.ndarray:
+    """CLI-unit noise parameter -> the estimator's internal vector
+    (gaussian sigma is stored in the [0,1] image range)."""
+    if cfg.noise.model == NoiseModel.GAUSSIAN:
+        value = value / 255.0
+    return np.full((1,), value, np.float32)
+
+
+def _load_model(args):
+    """(cfg, params tree, step) from --pretrained."""
+    if args.workdir:
+        raise NotImplementedError(
+            "--workdir needs the trainer's checkpoints, which come with the "
+            "Trainer slice of the port; use --pretrained"
+        )
+    if not args.pretrained:
+        raise SystemExit("--pretrained is required")
+    from ssdn_tpu_torch import zoo
+
+    cfg, params, meta = zoo.load(args.pretrained)
+    return cfg, params, int(meta.get("step", -1))
+
+
+def main(argv=None) -> None:
+    from ssdn_tpu_torch.infer import denoise_image, make_denoise_fn
+    from ssdn_tpu_torch.models.blindspot_unet import params_from_jax
+    from ssdn_tpu_torch.utils import list_images, load_image, save_image
+    from ssdn_tpu_torch.utils.images import to_internal
+
+    args = build_parser().parse_args(argv)
+    if args.tiled != "full":
+        raise NotImplementedError(
+            f"--tiled {args.tiled} comes with the tiled-inference slice of "
+            "the port; use --tiled full"
+        )
+    cfg, tree, step = _load_model(args)
+    print(f"checkpoint step: {step}")
+    print(f"noise model:     {cfg.noise.describe()}")
+
+    paths = list_images(args.input) if os.path.isdir(args.input) else [args.input]
+    if not paths:
+        raise FileNotFoundError(f"no images under {args.input!r}")
+    value = args.param if args.param is not None else default_param(cfg)
+    param = to_internal_param(cfg, value)
+
+    fn = make_denoise_fn(cfg, device=args.device)
+    params = params_from_jax(tree, device=args.device)
+    os.makedirs(args.output, exist_ok=True)
+    emitted = set()
+    for path in paths:
+        noisy = to_internal(load_image(path, grayscale=cfg.grayscale))
+        den = denoise_image(fn, params, noisy, param)
+        stem, ext = os.path.splitext(os.path.basename(path))
+        out_path = os.path.join(args.output, f"{stem}{args.suffix}.png")
+        if out_path in emitted:
+            # img.png and img.jpg in one folder must not overwrite each
+            # other's output: uniquify with the original extension (keyed
+            # on this run's outputs, not on files already on disk)
+            out_path = os.path.join(
+                args.output, f"{stem}_{ext.lstrip('.')}{args.suffix}.png"
+            )
+        emitted.add(out_path)
+        save_image(out_path, den)
+        print(f"  {path} -> {out_path} ({den.shape[1]}x{den.shape[0]})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,21 @@
+from ssdn_tpu_torch.utils.device import resolve_device
+from ssdn_tpu_torch.utils.images import (
+    from_internal,
+    list_images,
+    load_image,
+    pad_to_multiple,
+    psnr,
+    save_image,
+    to_internal,
+)
+
+__all__ = [
+    "resolve_device",
+    "from_internal",
+    "list_images",
+    "load_image",
+    "pad_to_multiple",
+    "psnr",
+    "save_image",
+    "to_internal",
+]
