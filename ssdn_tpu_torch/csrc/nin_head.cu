@@ -1,7 +1,11 @@
-// Fused 1x1 combiner head, forward (inference), for Hopper (sm_90a).
+// Fused 1x1 combiner head, forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel ssdn_tpu/ops/pallas/nin_head.py :: _fwd_call
-// (body `_make_fwd_kernel`, save_h1=False as called by fused_nin_head):
+// (body `_make_fwd_kernel`), both variants: save_h1=False as called by
+// fused_nin_head (inference: h1out is null and nothing extra is written)
+// and save_h1=True as called by _head_fwd (training: the rounded h1 tile,
+// already formed in shared memory, is also written to h1out, (M, Na) in
+// x's type, for the backward kernel nin_head_bwd.cu):
 //
 //   h1  = lrelu(sum_i lrelu(x_i) @ Wa_i + ba)   (M, Na)   rounded to x's type
 //   h2  = lrelu(h1 @ Wb + bb)                   (M, Nb)   rounded to x's type
@@ -18,7 +22,8 @@
 // (each of 256 threads owns up to 2 of the Na columns for all 32 rows),
 // writes the rounded h1 tile to shared memory, computes h2 from it into
 // shared memory (8 rows x 1 column per work item), and writes only the
-// fp32 output: h1 and h2 never reach device memory. Shared memory is
+// fp32 output: h2 never reaches device memory, h1 only when the caller
+// asks for it (training). Shared memory is
 // TM*(C+Na+Nb) floats (72 KB at the model's 96/384/96), above 48 KB, so the
 // launch raises the dynamic shared-memory limit. A ragged last tile (M not
 // a multiple of TM) is masked.
@@ -49,6 +54,7 @@ struct HeadArgs {
   const void* wc;
   const float* bc;
   float* out;
+  void* h1out;  // (M, Na) in T, or null (inference)
   int k, M, C, Na, Nb, Nc;
   float slope;
 };
@@ -56,6 +62,17 @@ struct HeadArgs {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // Round an fp32 value to T and back (identity for fp32).
@@ -122,14 +139,20 @@ __global__ void __launch_bounds__(THREADS) nin_head_fwd_kernel(HeadArgs a) {
       }
     }
   }
+  T* h1out = static_cast<T*>(a.h1out);
 #pragma unroll
   for (int q = 0; q < QA; ++q) {
     const int j = tid + q * THREADS;
     if (j < a.Na) {
       const float bj = a.ba[j];
 #pragma unroll
-      for (int r = 0; r < TM; ++r)
-        h1[j * TM + r] = round_to<T>(lrelu(acc[q][r] + bj, a.slope));
+      for (int r = 0; r < TM; ++r) {
+        const float v = round_to<T>(lrelu(acc[q][r] + bj, a.slope));
+        h1[j * TM + r] = v;
+        // consecutive threads write consecutive columns of one row
+        if (h1out != nullptr && r < rows)
+          h1out[(r0 + r) * a.Na + j] = from_f32<T>(v);
+      }
     }
   }
   __syncthreads();
@@ -190,12 +213,14 @@ int launch(const HeadArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Unused branch
-// pointers (index >= k) may be null. Launches on `stream`, no synchronise.
+// pointers (index >= k) may be null, and so may h1 (inference: h1 is not
+// written). Launches on `stream`, no synchronise.
 extern "C" int nin_head_fwd(const void* x0, const void* x1, const void* x2,
                             const void* x3, const void* wa0, const void* wa1,
                             const void* wa2, const void* wa3, const void* ba,
                             const void* wb, const void* bb, const void* wc,
-                            const void* bc, void* out, int k, int M, int C,
+                            const void* bc, void* out, void* h1, int k,
+                            int M, int C,
                             int Na, int Nb, int Nc, float slope, int is_bf16,
                             void* stream) {
   if (k < 1 || k > MAX_BRANCHES || Na > QA * THREADS) {
@@ -210,6 +235,7 @@ extern "C" int nin_head_fwd(const void* x0, const void* x1, const void* x2,
   a.wc = wc;
   a.bc = static_cast<const float*>(bc);
   a.out = static_cast<float*>(out);
+  a.h1out = h1;
   a.k = k; a.M = M; a.C = C; a.Na = Na; a.Nb = Nb; a.Nc = Nc;
   a.slope = slope;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

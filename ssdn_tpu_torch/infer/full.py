@@ -3,8 +3,8 @@ half): reflect-pad to stride-32 divisibility, one forward — the four
 rotated branches are the "4-rotation ensembling" [B config 5] — the
 Bayesian posterior mean, crop.
 
-``evaluate_dataset`` (synthetic-noise PSNR over a dataset) needs the noise
-injector and comes with the training slice.
+``evaluate_dataset`` (synthetic-noise PSNR over a dataset) comes with the
+evaluation slice.
 """
 
 from __future__ import annotations

@@ -7,8 +7,12 @@ only there, it computes the plain PyTorch twin ``torch_reference``. There
 is no size-based fallback: the TPU kernel sent large images to XLA because
 VMEM is small; the CUDA kernel takes every shape the model produces.
 
-The forward only: the custom backward (an ``autograd.Function`` over torch
-convs, as the JAX package's is XLA) comes with the training step.
+``fused_shifted_conv`` is the differentiable entry point (the JAX
+package's ``fused_shifted_conv`` custom VJP): an ``autograd.Function``
+whose forward is the wrapper above (K1 on CUDA, the twin on the CPU) and
+whose backward, ``shifted_conv_bwd``, is the JAX ``_fused_bwd`` in torch
+ops (cuDNN on the card), as the JAX package's is XLA. The same backward
+runs on both devices, so the CPU tests check the math the card runs.
 """
 
 from __future__ import annotations
@@ -17,6 +21,9 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from ssdn_tpu_torch.kernels import refuse_graph_cut
+from ssdn_tpu_torch.ops.shifted import _precision
 
 #: Number of CUDA launches of K1 since the last reset (set it to 0 to reset).
 launches = 0
@@ -72,6 +79,7 @@ def shifted_conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {x.device}")
     _check(x, w, b)
+    refuse_graph_cut("K1 shifted_conv3x3_bias_act", x, w, b)
     from ssdn_tpu_torch.kernels import _build
 
     lib = _build.load("shifted_conv", _SIGNATURES)
@@ -95,3 +103,62 @@ def shifted_conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor,
     global launches
     launches += 1
     return y
+
+
+def _conv_acc_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """VALID conv2d of x with w (cast to x's dtype), accumulated in fp32 and
+    rounded once to x's dtype. On the card cuDNN does exactly that for bf16
+    operands; on the CPU the operands are upcast first (exact), so both
+    devices round at the same point."""
+    w = w.to(x.dtype)
+    if x.device.type == "cuda":
+        return F.conv2d(x, w)
+    return F.conv2d(x.float(), w.float()).to(x.dtype)
+
+
+def shifted_conv_bwd(x, w, out, g, negative_slope: float = 0.1):
+    """(dx, dw, db) of ``lrelu(conv3x3_causal_up(x, w) + b)``: the JAX
+    package's ``_fused_bwd`` in torch ops.
+
+    The LeakyReLU mask comes from the output's sign bit (``signbit``, not
+    ``out >= 0``: a negative pre-activation that rounds to -0.0 in bf16
+    takes the slope side, as in the forward). dpre is rounded to x's dtype;
+    dx is the conv of dpre with the flipped, IO-transposed weights, padded
+    (0, 2) in rows and (1, 1) in columns, fp32 accumulation, in x's dtype;
+    dw is the per-tap contraction of the padded input with dpre in fp32,
+    cast to w's dtype; db the fp32 sum of dpre."""
+    g = g.float()
+    dpre = torch.where(torch.signbit(out), negative_slope * g, g).to(x.dtype)
+    w_rot = w.flip(2, 3).transpose(0, 1)  # (Cin, Cout, 3, 3)
+    with _precision(x.dtype, "highest"):
+        dx = _conv_acc_f32(F.pad(dpre, (1, 1, 0, 2)), w_rot)
+    with _precision(torch.float32, "highest"):  # true fp32, TF32 off
+        # the nine tap contractions are one weight-gradient conv
+        dw = torch.nn.grad.conv2d_weight(
+            F.pad(x, (1, 1, 2, 0)).float(), w.shape, dpre.float())
+    db = dpre.float().sum(dim=(0, 2, 3))
+    return dx, dw.to(w.dtype), db
+
+
+class _FusedShiftedConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, negative_slope):
+        out = shifted_conv3x3_bias_act(x, w, b, negative_slope=negative_slope)
+        ctx.save_for_backward(x, w, out)
+        ctx.slope = negative_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        return (*shifted_conv_bwd(x, w, out, g, ctx.slope), None)
+
+
+def fused_shifted_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                       negative_slope: float = 0.1) -> torch.Tensor:
+    """Differentiable ``shifted_conv3x3_bias_act`` (same arguments and
+    output). Where autograd records (grad mode on, an input requires grad)
+    it runs the ``autograd.Function``; otherwise the plain wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return _FusedShiftedConv.apply(x, w, b, negative_slope)
+    return shifted_conv3x3_bias_act(x, w, b, negative_slope=negative_slope)

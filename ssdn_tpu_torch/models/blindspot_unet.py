@@ -17,8 +17,9 @@ function does; inside, tensors are NCHW in channels_last memory format.
 
 Backends keep the config's names: ``conv_backend`` / ``head_backend``
 ``"lax"`` runs torch ops (cuDNN / cuBLAS on the GPU), ``"pallas"`` the
-hand-written CUDA kernels K1 (``kernels.shifted_conv``) and K2
-(``kernels.nin_head``).
+hand-written CUDA kernels K1 (``kernels.shifted_conv``) and K2/K2'/K3
+(``kernels.nin_head``), through their differentiable entry points, so
+``apply`` is differentiable in every arm.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ssdn_tpu_torch.kernels.nin_head import fused_nin_head
-from ssdn_tpu_torch.kernels.shifted_conv import shifted_conv3x3_bias_act
+from ssdn_tpu_torch.kernels.nin_head import nin_head
+from ssdn_tpu_torch.kernels.shifted_conv import fused_shifted_conv
 from ssdn_tpu_torch.ops import (
     conv2d,
     leaky_relu,
@@ -202,8 +203,7 @@ def _branch(params: Params, x: torch.Tensor, *, shifted: bool,
         if use_pallas:
             # the kernel writes its input dtype: cast to the compute dtype
             h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
-            return shifted_conv3x3_bias_act(h, p["w"], p["b"],
-                                            negative_slope=0.1)
+            return fused_shifted_conv(h, p["w"], p["b"], negative_slope=0.1)
         return leaky_relu(
             conv2d(h, p["w"], p["b"], shifted=shifted,
                    down_shift=down_shift,
@@ -326,7 +326,7 @@ def apply(params: Params, x: torch.Tensor, *, blindspot: bool = True,
         wa = _matrix(params["nin_a"]["w"], compute_dtype)
         offs = np.cumsum([0] + [p.shape[1] for p in parts])
         was = [wa[o:e] for o, e in zip(offs[:-1], offs[1:])]
-        out = fused_nin_head(
+        out = nin_head(
             xs, was,
             params["nin_a"]["b"].float(),
             _matrix(params["nin_b"]["w"], compute_dtype),
@@ -344,5 +344,7 @@ def apply(params: Params, x: torch.Tensor, *, blindspot: bool = True,
     f = leaky_relu(conv2d(f, params["nin_b"]["w"], params["nin_b"]["b"],
                           out_dtype=compute_dtype, precision=conv_precision))
     p = params["nin_c"]
-    out = matmul_acc_f32(f.permute(0, 2, 3, 1), _matrix(p["w"], compute_dtype))
+    # the fp32 matrix: matmul_acc_f32 casts it to the compute dtype and
+    # returns its grad in fp32, as the JAX custom VJP does
+    out = matmul_acc_f32(f.permute(0, 2, 3, 1), _matrix(p["w"], p["w"].dtype))
     return out + p["b"].float()

@@ -119,13 +119,44 @@ def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+class _MatmulAccF32(torch.autograd.Function):
+    """The JAX package's ``matmul_acc_f32`` custom VJP (``_mm_bwd``): the
+    cotangent is cast to x's dtype before both products; dx is formed in
+    x's dtype, dw accumulates in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        w_lp = w.to(x.dtype)
+        ctx.save_for_backward(x, w_lp)
+        ctx.w_dtype = w.dtype
+        return torch.matmul(x.float(), w_lp.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_lp = ctx.saved_tensors
+        gl = g.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(gl, w_lp.t())
+        if ctx.needs_input_grad[1]:
+            k = x.shape[-1]
+            dw = torch.matmul(x.reshape(-1, k).t().float(),
+                              gl.reshape(-1, g.shape[-1]).float())
+            dw = dw.to(ctx.w_dtype)
+        return dx, dw
+
+
 def matmul_acc_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) -> fp32 with fp32 accumulation, for low-precision
-    (e.g. bf16) operands. Upcasting first is exact: a product of two bf16
-    values is representable in fp32, so this is the bf16-operand /
-    fp32-accumulate product. Forward only; the custom backward (cotangent
-    cast back to the operand dtype) comes with the training step."""
-    return torch.matmul(x.float(), w.float())
+    (e.g. bf16) operands; w is cast to x's dtype first. Upcasting is exact:
+    a product of two bf16 values is representable in fp32, so this is the
+    bf16-operand / fp32-accumulate product.
+
+    The backward is the JAX package's custom VJP: the cotangent is cast to
+    x's dtype, dx = g_lp @ w^T in x's dtype, dw accumulates in fp32 and
+    comes back in w's own dtype. Pass w in fp32 (the parameter) to keep dw
+    in fp32, as JAX does; torch would round an fp32 gradient of a bf16 w."""
+    return _MatmulAccF32.apply(x, w)
 
 
 def _collapse_upsample_kernel(w_up: torch.Tensor) -> torch.Tensor:

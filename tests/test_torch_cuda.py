@@ -126,3 +126,144 @@ def test_apply_on_the_card_matches_the_cpu(cuda, conv, head, k1_calls,
     torch.cuda.synchronize()
     assert (K1.launches - k1_0, K2.launches - k2_0) == (k1_calls, k2_calls)
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------- training: K2', K3, autograd -------------------------
+
+
+def _head_twin_bar(ref, dtype):
+    # bf16: h1, h2, dpre1 and dpre2 are rounded on both sides, and a sum
+    # taken in another order can flip one rounding (2**-8): 2**-6 of the
+    # range. fp32: order only, 1e-5 of the range (sums over up to 4096 rows)
+    return (1e-5 if dtype == torch.float32 else 2 ** -6) * max(
+        ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n_out", [(4096, 4, 9), (1000, 4, 10), (77, 1, 2)])
+def test_k2_save_h1_cuda_matches_twin(cuda, dtype, m, k, n_out):
+    args = _k2_operands(m + 2 * k, m, k, n_out, dtype)
+    before = (K2.launches, K2.launches_save_h1)
+    out, h1 = K2.nin_head_fwd(*args, save_h1=True)
+    torch.cuda.synchronize()
+    assert (K2.launches, K2.launches_save_h1) == (before[0], before[1] + 1)
+    ref, ref_h1 = K2.torch_reference_fwd(*args)
+    assert h1.dtype == dtype and h1.shape == (m, 384)
+    torch.testing.assert_close(out, ref, rtol=0, atol=_head_twin_bar(ref, dtype))
+    # h1: one rounding of the same fp32 sum on each side (one bf16 ulp)
+    tol = TOL32 if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-5)
+    torch.testing.assert_close(h1.float(), ref_h1.float(), **tol)
+
+
+def _k3_operands(seed, m, k, n_out, dtype):
+    args = _k2_operands(seed, m, k, n_out, dtype)
+    xs, was, ba, wb, bb, wc, bc = args
+    _, h1 = K2.torch_reference_fwd(*args)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (m, n_out)).astype(np.float32)).cuda()
+    return xs, was, h1, wb, bb, wc, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n_out", [(4096, 4, 9), (4133, 4, 10), (77, 1, 2)])
+def test_k3_cuda_matches_twin(cuda, dtype, m, k, n_out):
+    args = _k3_operands(m + k, m, k, n_out, dtype)
+    before = K2.launches_bwd
+    got = K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    assert K2.launches_bwd == before + 1
+    ref = K2.torch_reference_bwd(*args)
+    flat = lambda r: [*r[0], *r[1], *r[2:]]
+    for i, (a, b) in enumerate(zip(flat(got), flat(ref))):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=_head_twin_bar(b.float(), dtype),
+                                   msg=lambda s, i=i: f"output {i}: {s}")
+
+
+def test_k3_cuda_is_bitwise_repeatable(cuda):
+    """No float atomics and a split count fixed by M: two launches on the
+    same inputs give the same bits."""
+    args = _k3_operands(9, 50_000, 4, 9, torch.bfloat16)
+    a, b = K2.nin_head_bwd(*args), K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*a[0], *a[1], *a[2:]], [*b[0], *b[1], *b[2:]]):
+        assert torch.equal(x, y)
+
+
+def test_kernel_wrappers_refuse_to_cut_the_graph(cuda):
+    """On the card a plain wrapper raises where autograd records and an
+    input requires grad; the autograd entry points run, and give grads."""
+    x, wt, b = _k1_operands(1, 1, 8, 8, 3, 48, torch.float32)
+    wt.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused_shifted_conv / nin_head"):
+        K1.shifted_conv3x3_bias_act(x, wt, b)
+    with torch.no_grad():
+        K1.shifted_conv3x3_bias_act(x, wt, b)
+    K1.fused_shifted_conv(x, wt, b).sum().backward()
+    assert wt.grad is not None and wt.grad.abs().max() > 0
+    args = _k2_operands(2, 64, 2, 9, torch.float32)
+    args[3].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused_shifted_conv / nin_head"):
+        K2.fused_nin_head(*args)
+    with pytest.raises(RuntimeError, match="fused_shifted_conv / nin_head"):
+        K2.nin_head_fwd(*args, save_h1=True)
+    before = (K2.launches_save_h1, K2.launches_bwd)
+    K2.nin_head(*args).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (K2.launches_save_h1, K2.launches_bwd) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert args[3].grad is not None and args[3].grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 32, 64, 3)])
+@pytest.mark.parametrize("conv,head", [("lax", "lax"), ("lax", "pallas"),
+                                       ("pallas", "lax")])
+def test_training_loss_and_grads_on_the_card_match_the_cpu(cuda, conv, head,
+                                                           shape):
+    """The whole forward + backward (SSDN gauss25 NLL, the stabilized
+    objective) in each backend arm on the card, against the torch ops on
+    the CPU, fp32 at narrow widths: the loss at 1e-5 relative, each leaf's
+    grad at 1e-4 of its max abs. The kernel arms count their launches."""
+    from ssdn_tpu_torch.config import (ModelConfig, TrainConfig,
+                                       parse_noise_style)
+    from ssdn_tpu_torch.train import make_train_step
+
+    def cfg(c, h):
+        return TrainConfig(noise=parse_noise_style("gauss25"), model=ModelConfig(
+            compute_dtype="float32", enc_features=8, dec_features=16,
+            nin_a_features=32, nin_b_features=16, conv_backend=c,
+            head_backend=h))
+
+    params = bu.init_params(torch.Generator().manual_seed(0), 3, 9,
+                            enc=8, dec=16, nin_a=32, nin_b=16)
+    for leaf in params.values():
+        leaf["b"] += 0.05
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+    y = (x + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    sig = np.full((shape[0],), 0.1, np.float32)
+
+    def run(device, c, h):
+        t = lambda a: torch.from_numpy(a).to(device)
+        p = {n: {k: v.to(device) for k, v in leaf.items()}
+             for n, leaf in params.items()}
+        return make_train_step(cfg(c, h), device=device).loss_and_grads(
+            p, t(x), t(y), {"sigma": t(sig)})
+
+    ref_loss, _, ref_grads = run("cpu", "lax", "lax")
+    counts = (K1.launches, K2.launches_save_h1, K2.launches_bwd)
+    loss, _, grads = run("cuda", conv, head)
+    torch.cuda.synchronize()
+    trunks = 1 if shape[1] == shape[2] else 2
+    want = {"lax": (0, 0, 0), "pallas": (12 * trunks, 0, 0)}[conv] if \
+        head == "lax" else (0, 1, 1)
+    assert (K1.launches - counts[0], K2.launches_save_h1 - counts[1],
+            K2.launches_bwd - counts[2]) == want
+    torch.testing.assert_close(loss.cpu(), ref_loss, rtol=1e-5, atol=0)
+    for name, leaf in ref_grads.items():
+        for key, ref in leaf.items():
+            torch.testing.assert_close(
+                grads[name][key].cpu(), ref, rtol=0,
+                atol=1e-4 * max(ref.abs().max().item(), 1e-30),
+                msg=lambda s, n=name, k=key: f"{n}.{k}: {s}")

@@ -150,7 +150,7 @@ def test_routing_rules():
     wrappers run their twins, so the calls are counted by wrapping them."""
     params = tbu.params_from_jax(numpy_tree(5, 1, 2), device="cpu")
     calls = {"k1": 0, "k2": 0}
-    k1, k2 = tbu.shifted_conv3x3_bias_act, tbu.fused_nin_head
+    k1, k2 = tbu.fused_shifted_conv, tbu.nin_head
 
     def count(name, fn):
         def wrapped(*a, **k):
@@ -158,8 +158,8 @@ def test_routing_rules():
             return fn(*a, **k)
         return wrapped
 
-    tbu.shifted_conv3x3_bias_act = count("k1", k1)
-    tbu.fused_nin_head = count("k2", k2)
+    tbu.fused_shifted_conv = count("k1", k1)
+    tbu.nin_head = count("k2", k2)
     try:
         for shape, conv, head, k1_calls, k2_calls in [
             ((1, 32, 32, 1), "pallas", "pallas", 12, 0),
@@ -172,7 +172,7 @@ def test_routing_rules():
                       conv_backend=conv, head_backend=head)
             assert (calls["k1"], calls["k2"]) == (k1_calls, k2_calls), shape
     finally:
-        tbu.shifted_conv3x3_bias_act, tbu.fused_nin_head = k1, k2
+        tbu.fused_shifted_conv, tbu.nin_head = k1, k2
     assert K1.launches == 0 and K2.launches == 0  # no CUDA launch on the CPU
 
 
