@@ -669,33 +669,64 @@ def capture_training(torch, models, report):
     return calls
 
 
-def k3_error(torch, got, ref, bf16):
+def k3_error(torch, got, ref, bf16, keep=None):
     """(max abs err, max rel err, ok) over all of K3's outputs, each held
     to a bar on its own range: fp32 1e-4 (sums over 1.5M rows, in other
     orders); bf16 2**-6 (h2, dpre2, dpre1 are rounded to bf16 on both
-    sides, and one flipped rounding moves a result)."""
+    sides, and one flipped rounding moves a result). ``keep``: the rows
+    of dx_i compared (all if None)."""
     flat = lambda r: [*r[0], *r[1], *r[2:]]
     worst_abs, worst_rel, ok = 0.0, 0.0, True
-    for a, b in zip(flat(got), flat(ref)):
+    n_dx = len(got[0])
+    for i, (a, b) in enumerate(zip(flat(got), flat(ref))):
         if a.dtype != b.dtype or a.shape != b.shape:
             return float("inf"), float("inf"), False
+        if i < n_dx and keep is not None:
+            a, b = a[keep], b[keep]
         e = k2_error(a.float(), b.float(), bf16)
         worst_abs, worst_rel = max(worst_abs, e[0]), max(worst_rel, e[1])
         ok = ok and e[2]
     return worst_abs, worst_rel, ok
 
 
-def random_head(torch, g, m, k, nc, dt):
-    xs = [(torch.randn(m, 96, device=DEVICE, generator=g) * 0.5).to(dt)
+def pre2_ties(torch, h1, wb, bb):
+    """Rows whose pre2 = h1 Wb + bb (fp32) has an element within 2**-20 of
+    pre2's range of zero. There dpre2's mask (pre2 >= 0) hangs on the
+    summation order: the tensor cores' sum and cuBLAS's differ by about
+    1e-7 (measured flips at |pre2| 4.5e-8 and 9.3e-8, range about 2), and
+    a flipped mask scales one dpre2 by 10 and moves the row's dx by a few
+    percent of dx's range. The weight grads, sums over all rows, still
+    hold their bar with these rows in."""
+    ties = torch.zeros(h1.shape[0], dtype=torch.bool, device=h1.device)
+    pre_max = 0.0
+    for pass_ in (0, 1):  # 0: the range; 1: the rows near zero
+        for r in range(0, h1.shape[0], 1 << 18):
+            pre2 = h1[r:r + (1 << 18)].float() @ wb.float() + bb.float()
+            if pass_ == 0:
+                pre_max = max(pre_max, pre2.abs().max().item())
+            else:
+                ties[r:r + (1 << 18)] = (pre2.abs() <= 2 ** -20 * pre_max).any(1)
+    return ties
+
+
+def random_head(torch, g, m, k, nc, dt, c=96, na=384, nb=96):
+    xs = [(torch.randn(m, c, device=DEVICE, generator=g) * 0.5).to(dt)
           for _ in range(k)]
-    was = [(torch.randn(96, 384, device=DEVICE, generator=g) * 0.05).to(dt)
+    was = [(torch.randn(c, na, device=DEVICE, generator=g) * 0.05).to(dt)
            for _ in range(k)]
-    rest = [torch.randn(384, device=DEVICE, generator=g) * 0.1,
-            (torch.randn(384, 96, device=DEVICE, generator=g) * 0.05).to(dt),
-            torch.randn(96, device=DEVICE, generator=g) * 0.1,
-            (torch.randn(96, nc, device=DEVICE, generator=g) * 0.1).to(dt),
+    rest = [torch.randn(na, device=DEVICE, generator=g) * 0.1,
+            (torch.randn(na, nb, device=DEVICE, generator=g) * 0.05).to(dt),
+            torch.randn(nb, device=DEVICE, generator=g) * 0.1,
+            (torch.randn(nb, nc, device=DEVICE, generator=g) * 0.1).to(dt),
             torch.randn(nc, device=DEVICE, generator=g) * 0.1]
     return xs, was, rest
+
+
+# K3's extra cases beyond a real step's operands (M, k, Nc, widths): ragged
+# row counts for the tensor-core tiles (64 rows in (a), 32 per stage in
+# (b)), and widths that are not multiples of 16 (C 40, Na 72, Nb 24, Nc 3)
+K3_BF16_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 4133)] + [
+    (4133, 4, 3, dict(c=40, na=72, nb=24)), (1000, 1, 3, dict(c=40, na=72, nb=24))]
 
 
 def training_kernels_vs_twins(torch, calls, report):
@@ -730,11 +761,17 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
         again = K2.nin_head_bwd(*args)
         flat = lambda r: [*r[0], *r[1], *r[2:]]
         same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
-        e = k3_error(torch, got, K2.torch_reference_bwd(*args), bf16)
+        # bf16: dx_i is held on the rows whose dpre2 mask is not a tie
+        ties = pre2_ties(torch, *args[2:5]) if bf16 else None
+        n_ties = int(ties.sum()) if bf16 else 0
+        e = k3_error(torch, got, K2.torch_reference_bwd(*args), bf16,
+                     keep=None if ties is None else ~ties)
+        m = args[0][0].shape[0]
         rows.append(dict(kernel="k3", model=model, call=0, shape=shape,
                          dtype=dname(torch, args[0][0].dtype),
                          max_abs_err=e[0], max_rel_err=e[1],
-                         bitwise_repeatable=same, ok=e[2] and same))
+                         tie_rows=n_ties, bitwise_repeatable=same,
+                         ok=e[2] and same and n_ties <= max(1, m // 1000)))
 
     for (kind, model), cs in calls.items():
         for i, (args, kwargs) in enumerate(cs):
@@ -755,16 +792,21 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
             else:
                 k3_row(model, args, shape)
     g = torch.Generator(device=DEVICE).manual_seed(1)
-    for dt in (torch.float32, torch.bfloat16):
-        for m, k, nc in ((TRAIN_BATCH * PATCH * PATCH - 13, 4, 9), (1000, 1, 2)):
-            xs, was, rest = random_head(torch, g, m, k, nc, dt)
-            shape = f"M={m} k={k} n_out={nc}"
+    cases = [(dt, m, k, nc, {}) for dt in (torch.float32, torch.bfloat16)
+             for m, k, nc in ((TRAIN_BATCH * PATCH * PATCH - 13, 4, 9),
+                              (1000, 1, 2))]
+    cases += [(torch.bfloat16, *case) for case in K3_BF16_CASES]
+    for dt, m, k, nc, widths in cases:
+        xs, was, rest = random_head(torch, g, m, k, nc, dt, **widths)
+        shape = f"M={m} k={k} n_out={nc}" + "".join(
+            f" {n}={v}" for n, v in widths.items())
+        if not widths:
             k2p_row("random", (xs, was, *rest), shape)
-            gout = torch.randn(m, nc, device=DEVICE, generator=g)
-            _, h1 = K2.torch_reference_fwd(xs, was, *rest)
-            ba, wb, bb, wc, bc = rest
-            k3_row("random", (xs, was, h1, wb, bb, wc, gout), shape)
-            del xs, was, rest, h1, gout
+        gout = torch.randn(m, nc, device=DEVICE, generator=g)
+        _, h1 = K2.torch_reference_fwd(xs, was, *rest)
+        ba, wb, bb, wc, bc = rest
+        k3_row("random", (xs, was, h1, wb, bb, wc, gout), shape)
+        del xs, was, rest, h1, gout
     torch.cuda.synchronize()
     report["training_kernel_vs_twin"] = rows
     for r in rows:
@@ -772,6 +814,7 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
               f"{r['dtype']:<8} max_abs {r['max_abs_err']:.3e} max_rel "
               f"{r['max_rel_err']:.3e}"
               + (" bitwise-repeatable" if r.get("bitwise_repeatable") else "")
+              + (f" ({r['tie_rows']} tie rows)" if r.get("tie_rows") else "")
               + f" {'ok' if r['ok'] else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"{len(bad)} training kernel-vs-twin comparisons failed")
@@ -1034,6 +1077,20 @@ def k3_cost(torch, xs, was, h1, wb, wc):
     return bound(nbytes, ops, dname(torch, xs[0].dtype))
 
 
+# K3's three kernels by name prefix (the fp32 and the bf16 instantiation)
+K3_PARTS = {"rows": "bwd_rows", "wgrad": "wgrad_", "reduce": "reduce_splits"}
+
+
+def k3_parts(torch, fn, reps):
+    """K3's device ms per call, split into (a) the row kernel, (b) the
+    weight-grad partials and (c) the split reduction: torch.profiler's
+    device events over reps calls of fn (warmed)."""
+    fn()
+    _, top = device_profile(torch, lambda: [fn() for _ in range(reps)])
+    return {part: sum(ms for name, ms, _ in top if prefix in name) / reps
+            for part, prefix in K3_PARTS.items()}
+
+
 def time_training_kernels(torch, calls, report, reps=5):
     """Per-step time of K2', K3 and K1 (training shapes) against the bound,
     the twin and a library yardstick (timed only, never used): three
@@ -1077,11 +1134,16 @@ def time_training_kernels(torch, calls, report, reps=5):
             tot = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                        bound_by=by, dtype=dname(torch, xs[0].dtype),
                        launches_per_step=1)
+            if kind == "k3":
+                tot["parts_ms"] = k3_parts(
+                    torch, lambda: K2.nin_head_bwd(*args), reps)
         per[kind, model] = tot
         print(f"  {kind:<3} {model:<20} {tot['dtype']:<8} per step: "
               f"{tot['ms']:.3f} ms (bound {tot['bound_ms']:.3f} ms, "
               f"{tot['bound_by']}), twin {tot['plain_ms']:.3f} ms, library "
-              f"{tot['library_ms']:.3f} ms, {tot['launches_per_step']} launches")
+              f"{tot['library_ms']:.3f} ms, {tot['launches_per_step']} launches"
+              + "".join(f", ({part}) {v:.3f} ms"
+                        for part, v in tot.get("parts_ms", {}).items()))
     report["training_kernel_timing"] = {f"{k}:{m}": v for (k, m), v in per.items()}
     return per
 
@@ -1107,7 +1169,7 @@ def training_line(report, timing, launches):
             ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
             bound_by=v["bound_by"], library_ms=v["library_ms"],
             per=f"one batch-{TRAIN_BATCH} training step", dtype=v["dtype"],
-            model=model))
+            model=model, **({"parts_ms": v["parts_ms"]} if kind == "k3" else {})))
     return line
 
 

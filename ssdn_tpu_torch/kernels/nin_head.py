@@ -29,6 +29,7 @@ a ragged tail).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -58,6 +59,104 @@ _BWD_SIGNATURES = {
 _SPLIT_ROWS = 4096
 _MAX_SPLITS = 64
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# K3's launch geometry; csrc/nin_head_bwd.cu uses the same numbers.
+SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
+_ROWS_F32 = 32           # (a) rows per block, fp32 FMA kernel
+_LD_F32 = _ROWS_F32 + 4  # its shared tile stride (floats)
+_TILE_F32 = 64           # (b) fp32 output tile, square
+_ROWS_TC = 64            # (a) rows per block, bf16 tensor-core kernel
+_WA_CHUNK = 32           # (a) Wa_i columns per stage of its ring
+_WA_STAGES = 4           # (a) the ring's stages
+_TILE_P, _TILE_Q = 96, 128  # (b) bf16 output tile (P x Q)
+_STAGE_ROWS = 32         # (b) bf16 rows per stage of its ring
+_WG_STAGES = 4           # (b) the ring's stages
+_SKEW = 8                # bf16 elements added to every shared row
+_MAX_C_TC = 256          # (a) bf16: dx_i's columns all in one warp pass
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """What one K3 launch needs: (a) row blocks and shared bytes, (b)
+    output tiles (blocks = tiles x splits) and shared bytes, the workspace
+    (elements of x's dtype: h2, dpre2, dpre1 and, in bf16, g rounded to
+    bf16 and padded to 16 columns), the flat fp32 weight-grad sizes and
+    the partial sums (floats)."""
+    splits: int
+    rows_per_block: int
+    row_blocks: int
+    rows_smem: int
+    wgrad_tiles: int
+    wgrad_smem: int
+    workspace: int
+    dw_sizes: tuple
+    partial: int
+
+    @property
+    def wgrad_blocks(self) -> int:
+        return self.wgrad_tiles * self.splits
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
+            dtype: torch.dtype) -> K3Plan:
+    """K3's launch plan for M rows, k branches of C channels, the head's
+    widths Na, Nb, Nc and x's dtype: the numbers the wrapper allocates and
+    checks with, and that ``csrc/nin_head_bwd.cu`` computes the same way."""
+    splits = bwd_splits(m)
+    # flat fp32 output: [dWa_0 | dba | dWa_1.. | dWb | dbb | dWc | dbc]
+    sizes = (c * na, na, *[c * na] * (k - 1), na * nb, nb, nb * nc, nc)
+    if dtype == torch.bfloat16:
+        p16 = lambda v: _cdiv(v, 16) * 16
+        cp, nap, nbp, ncp = p16(c), p16(na), p16(nb), p16(nc)
+        rows = _ROWS_TC
+        smem = 2 * (nap * (nbp + _SKEW) + rows * (nap + _SKEW)
+                    + rows * (max(nbp, cp) + _SKEW) + rows * (ncp + _SKEW)
+                    + nbp * (ncp + _SKEW)
+                    + _WA_STAGES * cp * (_WA_CHUNK + _SKEW))
+        tq = _cdiv(na, _TILE_Q)
+        # dWa_i (C x Na), dWb^T (Nb x Na), dWc (Nb x Nc), dbc's column sums
+        tiles = (k * _cdiv(c, _TILE_P) * tq + _cdiv(nb, _TILE_P) * tq
+                 + _cdiv(nb, _TILE_P) * _cdiv(nc, _TILE_Q) + 1)
+        wsmem = _WG_STAGES * 2 * _STAGE_ROWS * (_TILE_P + _TILE_Q + 2 * _SKEW)
+        ws = m * (2 * nb + na + ncp)
+    else:
+        rows = _ROWS_F32
+        smem = 4 * _LD_F32 * (2 * na + nb + nc)
+        t = lambda p, q: _cdiv(p, _TILE_F32) * _cdiv(q, _TILE_F32)
+        # dWa_0 + dba, dWa_i, dWb + dbb, dWc, dbc
+        tiles = (t(c + 1, na) + (k - 1) * t(c, na) + t(na + 1, nb)
+                 + t(nb, nc) + t(1, nc))
+        wsmem = 2 * 4 * 32 * _TILE_F32
+        ws = m * (2 * nb + na)
+    return K3Plan(splits=splits, rows_per_block=rows,
+                  row_blocks=_cdiv(m, rows), rows_smem=smem,
+                  wgrad_tiles=tiles, wgrad_smem=wsmem,
+                  workspace=ws, dw_sizes=sizes,
+                  partial=splits * sum(sizes))
+
+
+def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:
+    """What the kernels take beyond ``_check``: shared memory within one
+    block's limit and, for the bf16 tensor-core kernels, widths C, Na, Nb
+    that are multiples of 8 and operands on 16-byte boundaries (their rows
+    move in 16-byte copies), and C <= ``_MAX_C_TC``."""
+    if plan.rows_smem > SMEM_LIMIT:
+        raise ValueError(f"K3 needs {plan.rows_smem} bytes of shared memory "
+                         f"per block, more than {SMEM_LIMIT}")
+    if dt != torch.bfloat16:
+        return
+    if c % 8 or na % 8 or nb % 8:
+        raise ValueError(f"bf16 K3 takes C, Na, Nb in multiples of 8, got "
+                         f"{c}, {na}, {nb}")
+    if c > _MAX_C_TC:
+        raise ValueError(f"bf16 K3 takes at most {_MAX_C_TC} input channels, "
+                         f"got {c}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 K3 operands must start on 16-byte boundaries")
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -220,31 +319,38 @@ def nin_head_bwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     refuse_graph_cut("K3 nin_head_bwd", *xs, *was, h1, wb, bb, wc, g)
     from ssdn_tpu_torch.kernels import _build
 
-    lib = _build.load("nin_head_bwd", _BWD_SIGNATURES)
     k = len(xs)
     m, c = x0.shape
     na, nb, nc = was[0].shape[1], wb.shape[1], wc.shape[1]
     dev, dt = x0.device, x0.dtype
+    plan = k3_plan(m, c, na, nb, nc, k, dt)
+    _check_k3_launch(plan, (*xs, *was, h1, wb, wc), c, na, nb, dt)
+    lib = _build.load("nin_head_bwd", _BWD_SIGNATURES)
     dxs = [torch.empty_like(x) for x in xs]
-    # flat fp32 output: [dWa_0 | dba | dWa_1.. | dWb | dbb | dWc | dbc]
-    sizes = [c * na, na] + [c * na] * (k - 1) + [na * nb, nb, nb * nc, nc]
+    sizes = plan.dw_sizes
     dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    ws = torch.empty(m * (2 * nb + na), dtype=dt, device=dev)
-    # transposed weights: the kernel's warps read them along their columns
-    wats = [w.t().contiguous() for w in was]
-    wbt = wb.t().contiguous()
-    splits = bwd_splits(m)
-    partial = torch.empty(splits * dw.numel(), dtype=torch.float32, device=dev)
+    ws = torch.empty(plan.workspace, dtype=dt, device=dev)
+    partial = torch.empty(plan.partial, dtype=torch.float32, device=dev)
+    # the fp32 kernel reads transposed weights along its warps; the bf16
+    # kernel reads Wa_i and Wb as they are (ldmatrix transposes in shared
+    # memory), so it takes no copies
+    if dt == torch.bfloat16:
+        wats, wbt = list(was), None
+    else:
+        wats = [w.t().contiguous() for w in was]
+        wbt = wb.t().contiguous()
     pad = [None] * (MAX_BRANCHES - k)
+    ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         err = lib.nin_head_bwd(
             *[x.data_ptr() for x in xs], *pad,
-            *[w.data_ptr() for w in wats], *pad,
-            h1.data_ptr(), wb.data_ptr(), wbt.data_ptr(),
+            *[ptr(w) for w in wats], *pad,
+            h1.data_ptr(), wb.data_ptr(), ptr(wbt),
             bb.data_ptr(), wc.data_ptr(),
             g.data_ptr(), *[d.data_ptr() for d in dxs], *pad,
             dw.data_ptr(), ws.data_ptr(), partial.data_ptr(),
-            k, m, c, na, nb, nc, splits, SLOPE, int(dt == torch.bfloat16),
+            k, m, c, na, nb, nc, plan.splits, SLOPE,
+            int(dt == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     if err:

@@ -155,8 +155,8 @@ def test_k2_save_h1_cuda_matches_twin(cuda, dtype, m, k, n_out):
     torch.testing.assert_close(h1.float(), ref_h1.float(), **tol)
 
 
-def _k3_operands(seed, m, k, n_out, dtype):
-    args = _k2_operands(seed, m, k, n_out, dtype)
+def _k3_operands(seed, m, k, n_out, dtype, **widths):
+    args = _k2_operands(seed, m, k, n_out, dtype, **widths)
     xs, was, ba, wb, bb, wc, bc = args
     _, h1 = K2.torch_reference_fwd(*args)
     g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
@@ -164,10 +164,7 @@ def _k3_operands(seed, m, k, n_out, dtype):
     return xs, was, h1, wb, bb, wc, g
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n_out", [(4096, 4, 9), (4133, 4, 10), (77, 1, 2)])
-def test_k3_cuda_matches_twin(cuda, dtype, m, k, n_out):
-    args = _k3_operands(m + k, m, k, n_out, dtype)
+def _k3_matches_twin(args, dtype):
     before = K2.launches_bwd
     got = K2.nin_head_bwd(*args)
     torch.cuda.synchronize()
@@ -176,9 +173,57 @@ def test_k3_cuda_matches_twin(cuda, dtype, m, k, n_out):
     flat = lambda r: [*r[0], *r[1], *r[2:]]
     for i, (a, b) in enumerate(zip(flat(got), flat(ref))):
         assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.isfinite(a).all(), i
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=_head_twin_bar(b.float(), dtype),
                                    msg=lambda s, i=i: f"output {i}: {s}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n_out", [(4096, 4, 9), (4133, 4, 10), (77, 1, 2)])
+def test_k3_cuda_matches_twin(cuda, dtype, m, k, n_out):
+    _k3_matches_twin(_k3_operands(m + k, m, k, n_out, dtype), dtype)
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 4133])
+def test_k3_bf16_ragged_rows_match_twin(cuda, m):
+    """The tensor-core kernels at ragged M: a tile of 64 rows (a) and a
+    stage of 32 rows (b) part-filled, the rest zero and masked."""
+    _k3_matches_twin(_k3_operands(m, m, 4, 10, torch.bfloat16),
+                     torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,k", [(1000, 4), (77, 1), (4133, 2)])
+def test_k3_bf16_narrow_widths_match_twin(cuda, m, k):
+    """Widths that are not multiples of 16 (C 40, Na 72, Nb 24, Nc 3): the
+    padded columns are zero in shared memory and masked on store."""
+    args = _k3_operands(m + 5, m, k, 3, torch.bfloat16, c=40, na=72, nb=24)
+    _k3_matches_twin(args, torch.bfloat16)
+
+
+def test_k3_bf16_refuses_what_it_does_not_take(cuda):
+    """bf16 K3 raises, and launches nothing, for widths that are not
+    multiples of 8 and for operands off a 16-byte boundary."""
+    before = K2.launches_bwd
+    args = _k3_operands(3, 64, 1, 3, torch.bfloat16, c=20, na=72, nb=24)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K2.nin_head_bwd(*args)
+    xs, was, h1, wb, bb, wc, g = _k3_operands(3, 64, 1, 3, torch.bfloat16)
+    off = torch.empty(64 * 96 + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    off = off.view(64, 96).copy_(xs[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        K2.nin_head_bwd([off], was, h1, wb, bb, wc, g)
+    assert K2.launches_bwd == before
+
+
+def test_k3_bf16_is_bitwise_repeatable_at_scale(cuda):
+    """The tensor-core path at M = 262,144 (64 splits of the weight grads,
+    4,096 row tiles): two launches give the same bits."""
+    args = _k3_operands(11, 262_144, 4, 10, torch.bfloat16)
+    a, b = K2.nin_head_bwd(*args), K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*a[0], *a[1], *a[2:]], [*b[0], *b[1], *b[2:]]):
+        assert torch.equal(x, y)
 
 
 def test_k3_cuda_is_bitwise_repeatable(cuda):

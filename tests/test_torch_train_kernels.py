@@ -142,14 +142,14 @@ def test_fused_shifted_conv_inference_path_is_the_wrapper():
 M, C, NA, NB = 512, 16, 48, 16
 
 
-def _head_inputs(seed, k, n_out, m=M):
+def _head_inputs(seed, k, n_out, m=M, c=C, na=NA, nb=NB):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale: (rng.standard_normal(s) * scale).astype(np.float32)
-    xs = [f(m, C, scale=0.5) for _ in range(k)]
+    xs = [f(m, c, scale=0.5) for _ in range(k)]
     xs[0][0, 0] = -0.0
-    was = [f(C, NA, scale=0.2) for _ in range(k)]
-    return (xs, was, f(NA, scale=0.1), f(NA, NB, scale=0.2), f(NB, scale=0.1),
-            f(NB, n_out, scale=0.2), f(n_out, scale=0.1),
+    was = [f(c, na, scale=0.2) for _ in range(k)]
+    return (xs, was, f(na, scale=0.1), f(na, nb, scale=0.2), f(nb, scale=0.1),
+            f(nb, n_out, scale=0.2), f(n_out, scale=0.1),
             f(m, n_out, scale=1.0))
 
 
@@ -225,6 +225,33 @@ def test_k3_twin_matches_pallas(nh_interpret, dtype, k):
         r = np.asarray(r, np.float32).reshape(t.shape)
         want = xs[0].dtype if i < k else jnp.float32
         assert (t.dtype == torch.bfloat16) == (want == jnp.bfloat16), i
+        np.testing.assert_allclose(t.float().numpy(), r, rtol=0,
+                                   atol=_head_bar(r, dtype), err_msg=str(i))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_k3_twin_matches_pallas_at_narrow_widths(nh_interpret, dtype):
+    """The head backward at widths that are not multiples of 16 (C 40,
+    Na 72, Nb 24, Nc 3; k 2), which the bf16 tensor-core kernels pad in
+    shared memory: the twin against the TPU kernel, at
+    ``test_k3_twin_matches_pallas``'s bars."""
+    k, c, na, nb = 2, 40, 72, 24
+    xs, was, ba, wb, bb, wc, bc, g = _jax_head(
+        _head_inputs(30, k, 3, c=c, na=na, nb=nb), dtype)
+    _, h1 = NH._fwd_call(xs, was, ba[None], wb, bb[None], wc, bc[None],
+                         tm=256, interpret=True, save_h1=True)
+    ref = NH._bwd_call(xs, was, h1, wb, bb[None], wc, g, tm=256,
+                       interpret=True)
+    got = K2.nin_head_bwd(
+        [_torch_of(x) for x in xs], [_torch_of(w) for w in was],
+        _torch_of(h1), _torch_of(wb), _torch_of(bb), _torch_of(wc),
+        _torch_of(g))
+    got = [*got[0], *got[1], *got[2:]]
+    shapes = [(M, c)] * k + [(c, na)] * k + [(na,), (na, nb), (nb,),
+                                             (nb, 3), (3,)]
+    assert [tuple(t.shape) for t in got] == shapes
+    for i, (t, r) in enumerate(zip(got, ref)):
+        r = np.asarray(r, np.float32).reshape(t.shape)
         np.testing.assert_allclose(t.float().numpy(), r, rtol=0,
                                    atol=_head_bar(r, dtype), err_msg=str(i))
 
