@@ -14,10 +14,11 @@ which fails the run (non-zero exit) on any error:
 3. holds each kernel against its plain PyTorch twin on the card: K1 and K2
    on the operands of real 768x512 requests (every K1 layer shape, K2 at
    M = 393,216), K2' and K3 on the operands of a real batch-384 training
-   step (M = 1,572,864, k 4; K3 launched twice and compared bit for bit),
-   K1 at the training shapes, and random ragged shapes; then times K2',
-   K3 and K1 per training step against their bounds, twins and library
-   yardsticks;
+   step (M = 1,572,864, k 4; K2' and K3 launched twice and compared bit
+   for bit, K2' against K2's out bits), K1 at the training shapes, and
+   random ragged shapes and narrow widths (bf16 K2 / K2' at M 1 to 4,133
+   and C/Na/Nb 40/72/24 and 16/32/16); then times K2', K3 and K1 per
+   training step against their bounds, twins and library yardsticks;
 4. the serving path: two bundled pretrained models (``gauss25_rgb`` in
    fp32, ``gauss5_50_blind_rgb`` in bf16) serve 5 requests each — four
    Kodak-size 768x512 images and one BSD68-size 481x321 — through
@@ -369,12 +370,28 @@ def kernels_vs_twins(torch, calls, report):
                              shape=f"M={m} k={k} n_out={nc}",
                              dtype=dname(torch, dt), max_abs_err=err[0],
                              max_rel_err=err[1], ok=err[2]))
+    # bf16 on the tensor cores: ragged row tiles and narrow widths (the
+    # generic instantiation); each launched twice (same bits) and beside
+    # K2' (the same kernel: the same out bits)
+    for m, k, nc, widths in K2_BF16_CASES:
+        xs, was, rest = random_head(torch, g, m, k, nc, torch.bfloat16,
+                                    **widths)
+        got = K2.fused_nin_head(xs, was, *rest)
+        again = K2.fused_nin_head(xs, was, *rest)
+        with_h1 = K2.nin_head_fwd(xs, was, *rest, save_h1=True)[0]
+        same = torch.equal(got, again) and torch.equal(got, with_h1)
+        err = k2_error(got, K2.torch_reference(xs, was, *rest), True)
+        rows.append(dict(kernel="k2", model="random", call=0,
+                         shape=_head_shape(m, k, nc, widths), dtype="bfloat16",
+                         max_abs_err=err[0], max_rel_err=err[1],
+                         bitwise_repeatable=same, ok=err[2] and same))
     torch.cuda.synchronize()
     report["kernel_vs_twin"] = rows
     for r in rows:
         print(f"  {r['kernel']} {r['model']:<20} {r['shape']:<28} {r['dtype']:<8} "
-              f"max_abs {r['max_abs_err']:.3e} max_rel {r['max_rel_err']:.3e} "
-              f"{'ok' if r['ok'] else 'FAIL'}")
+              f"max_abs {r['max_abs_err']:.3e} max_rel {r['max_rel_err']:.3e}"
+              + (" bitwise-repeatable" if r.get("bitwise_repeatable") else "")
+              + f" {'ok' if r['ok'] else 'FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"{len(bad)} kernel-vs-twin comparisons out of tolerance")
     return rows
@@ -722,6 +739,18 @@ def random_head(torch, g, m, k, nc, dt, c=96, na=384, nb=96):
     return xs, was, rest
 
 
+# bf16 K2 / K2''s extra cases (M, k, Nc, widths): ragged row counts for the
+# tensor-core kernel's 128-row tiles, and the widths of the generic
+# instantiation (not multiples of 16; the narrow model config's head)
+K2_BF16_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 127, 129, 4133)] + [
+    (1000, 4, 3, dict(c=40, na=72, nb=24)), (1000, 4, 9, dict(c=16, na=32, nb=16))]
+
+
+def _head_shape(m, k, nc, widths):
+    return f"M={m} k={k} n_out={nc}" + "".join(
+        f" {n}={v}" for n, v in widths.items())
+
+
 # K3's extra cases beyond a real step's operands (M, k, Nc, widths): ragged
 # row counts for the tensor-core tiles (64 rows in (a), 32 per stage in
 # (b)), and widths that are not multiples of 16 (C 40, Na 72, Nb 24, Nc 3)
@@ -746,6 +775,10 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
     def k2p_row(model, args, shape):
         bf16 = args[0][0].dtype == torch.bfloat16
         out, h1 = K2.nin_head_fwd(*args, save_h1=True)
+        out2, h1_2 = K2.nin_head_fwd(*args, save_h1=True)
+        # K2 and K2' are one kernel: the same out bits
+        same = (torch.equal(out, out2) and torch.equal(h1, h1_2)
+                and torch.equal(out, K2.fused_nin_head(*args)))
         ref, ref_h1 = K2.torch_reference_fwd(*args)
         e_out = k2_error(out, ref, bf16)
         e_h1 = k1_error(torch, h1, ref_h1)  # one rounding of one fp32 sum
@@ -753,7 +786,8 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
                          dtype=dname(torch, args[0][0].dtype),
                          max_abs_err=max(e_out[0], e_h1[0]),
                          max_rel_err=max(e_out[1], e_h1[1]),
-                         ok=e_out[2] and e_h1[2]))
+                         bitwise_repeatable=same,
+                         ok=e_out[2] and e_h1[2] and same))
 
     def k3_row(model, args, shape):
         bf16 = args[0][0].dtype == torch.bfloat16
@@ -795,12 +829,16 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
     cases = [(dt, m, k, nc, {}) for dt in (torch.float32, torch.bfloat16)
              for m, k, nc in ((TRAIN_BATCH * PATCH * PATCH - 13, 4, 9),
                               (1000, 1, 2))]
+    for m, k, nc, widths in K2_BF16_CASES:
+        xs, was, rest = random_head(torch, g, m, k, nc, torch.bfloat16,
+                                    **widths)
+        k2p_row("random", (xs, was, *rest), _head_shape(m, k, nc, widths))
+    n_k2p = len(cases)  # K2''s own bf16 cases ran above
     cases += [(torch.bfloat16, *case) for case in K3_BF16_CASES]
-    for dt, m, k, nc, widths in cases:
+    for i, (dt, m, k, nc, widths) in enumerate(cases):
         xs, was, rest = random_head(torch, g, m, k, nc, dt, **widths)
-        shape = f"M={m} k={k} n_out={nc}" + "".join(
-            f" {n}={v}" for n, v in widths.items())
-        if not widths:
+        shape = _head_shape(m, k, nc, widths)
+        if i < n_k2p:
             k2p_row("random", (xs, was, *rest), shape)
         gout = torch.randn(m, nc, device=DEVICE, generator=g)
         _, h1 = K2.torch_reference_fwd(xs, was, *rest)

@@ -3,8 +3,8 @@ them with ctypes.
 
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds) under
-``build/ssdn_tpu_torch/`` at the repo root, keyed by a hash of the source
-and the flags; ``build`` starts one ``nvcc`` per missing library, all at
+``build/ssdn_tpu_torch/`` at the repo root, keyed by a hash of the source,
+the headers in ``csrc/`` and the flags; ``build`` starts one ``nvcc`` per missing library, all at
 once. Nothing here runs at import time: the kernel wrappers call ``load``
 on their first CUDA launch, and CPU code paths never reach this module.
 """
@@ -42,9 +42,16 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
+    """(source, library path). The library's name carries a hash of the
+    source, of every header in ``csrc/`` (a source may include any of
+    them) and of the flags, so an edited header never loads a stale
+    library."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + [os.path.join(CSRC, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

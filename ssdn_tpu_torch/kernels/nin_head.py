@@ -38,7 +38,10 @@ from ssdn_tpu_torch.kernels import refuse_graph_cut
 
 SLOPE = 0.1
 MAX_BRANCHES = 4
-MAX_NA = 512  # the kernel's layer-a columns: 2 per thread x 256 threads
+# fp32 (FMA) K2 and K3 only: layer-a columns, 2 per thread x 256 threads.
+# bf16 K2 walks Na in chunks and takes any multiple of 8; bf16 K3 keeps
+# this limit.
+MAX_NA = 512
 
 #: CUDA launches since the last reset (set to 0 to reset): K2, the
 #: inference forward; K2', the forward that saves h1; K3, the backward.
@@ -73,6 +76,83 @@ _STAGE_ROWS = 32         # (b) bf16 rows per stage of its ring
 _WG_STAGES = 4           # (b) the ring's stages
 _SKEW = 8                # bf16 elements added to every shared row
 _MAX_C_TC = 256          # (a) bf16: dx_i's columns all in one warp pass
+
+
+# K2's launch geometry; csrc/nin_head.cu uses the same numbers. bf16 (tensor
+# cores): 8 warps of 16 rows each, one block per SM, Na in chunks of 32
+# columns through a 2-stage weight ring. The model's widths (k 4, C 96, Na
+# 384, Nb 96) run an instantiation with them fixed at compile time, every
+# other width a generic one.
+_K2_WARPS, _K2_ROWS_PER_WARP, _K2_CHUNK, _K2_STAGES = 8, 16, 32, 2
+_K2_MODEL = (4, 96, 384, 96)  # k, C, Na, Nb
+_MAX_C_K2 = 256              # bf16: input channels
+_MAX_NB_K2 = 128             # bf16: pre2's columns, held in registers
+_NC_K2 = 16                  # bf16: out's columns, padded
+_ROWS_K2_F32 = 32            # fp32 FMA kernel: rows per block
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """What one K2/K2' launch needs: the instantiation ("fma" for fp32;
+    bf16: "fixed" at the model's widths, else "generic"), rows per tile,
+    row tiles, chunks of Na per tile, threads and blocks per SM (bf16: the
+    grid is min(tiles, SMs x blocks per SM), persistent blocks), and the
+    shared bytes per block."""
+    instantiation: str
+    rows_per_block: int
+    row_tiles: int
+    chunks: int
+    threads: int
+    blocks_per_sm: int
+    smem: int
+
+
+def k2_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
+            dtype: torch.dtype) -> K2Plan:
+    """K2's launch plan for M rows, k branches of C channels, the head's
+    widths Na, Nb, Nc and x's dtype: the numbers the wrapper checks with,
+    and that ``csrc/nin_head.cu`` computes the same way."""
+    if dtype != torch.bfloat16:
+        rows = _ROWS_K2_F32
+        return K2Plan("fma", rows, _cdiv(m, rows), 1, 256, 1,
+                      4 * rows * (c + na + nb))
+    rows, chunk = _K2_ROWS_PER_WARP * _K2_WARPS, _K2_CHUNK
+    p16 = lambda v: _cdiv(v, 16) * 16
+    cp, nbp = p16(c), p16(nb)
+    # bf16 elements: x tiles, the ring (Wa_i chunks | Wb chunk), the warps'
+    # h1 chunk / h2 rows, Wc; every shared row padded by _SKEW
+    smem = 2 * (k * rows * (cp + _SKEW)
+                + _K2_STAGES * (k * cp * (chunk + _SKEW) + chunk * (nbp + _SKEW))
+                + rows * (max(chunk, nbp) + _SKEW) + nbp * (_NC_K2 + _SKEW))
+    inst = "fixed" if (k, c, na, nb) == _K2_MODEL else "generic"
+    return K2Plan(inst, rows, _cdiv(m, rows), _cdiv(na, chunk),
+                  32 * _K2_WARPS, 1, smem)
+
+
+def _check_k2_launch(plan: K2Plan, tensors, c, na, nb, nc, dt) -> None:
+    """What K2 takes beyond ``_check``: shared memory within one block's
+    limit; fp32 (FMA): Na <= ``MAX_NA``; bf16 (tensor cores): C, Na, Nb
+    multiples of 8, C <= 256, Nb <= 128, Nc <= 16, and x_i, Wa_i, Wb on
+    16-byte boundaries (their rows move in 16-byte copies)."""
+    if plan.smem > SMEM_LIMIT:
+        raise ValueError(f"K2 needs {plan.smem} bytes of shared memory per "
+                         f"block, more than {SMEM_LIMIT}")
+    if dt != torch.bfloat16:
+        if na > MAX_NA:
+            raise ValueError(f"fp32 K2 supports at most {MAX_NA} layer-a "
+                             f"columns, got {na}")
+        return
+    if c % 8 or na % 8 or nb % 8:
+        raise ValueError(f"bf16 K2 takes C, Na, Nb in multiples of 8, got "
+                         f"{c}, {na}, {nb}")
+    if c > _MAX_C_K2:
+        raise ValueError(f"bf16 K2 takes at most {_MAX_C_K2} input channels, "
+                         f"got {c}")
+    if nb > _MAX_NB_K2 or nc > _NC_K2:
+        raise ValueError(f"bf16 K2 takes Nb <= {_MAX_NB_K2} and Nc <= "
+                         f"{_NC_K2}, got {nb}, {nc}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 K2 operands must start on 16-byte boundaries")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,10 +220,14 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
 
 
 def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:
-    """What the kernels take beyond ``_check``: shared memory within one
-    block's limit and, for the bf16 tensor-core kernels, widths C, Na, Nb
-    that are multiples of 8 and operands on 16-byte boundaries (their rows
-    move in 16-byte copies), and C <= ``_MAX_C_TC``."""
+    """What the kernels take beyond ``_check``: Na <= ``MAX_NA``, shared
+    memory within one block's limit and, for the bf16 tensor-core kernels,
+    widths C, Na, Nb that are multiples of 8 and operands on 16-byte
+    boundaries (their rows move in 16-byte copies), and C <=
+    ``_MAX_C_TC``."""
+    if na > MAX_NA:
+        raise ValueError(f"K3 supports at most {MAX_NA} layer-a columns, "
+                         f"got {na}")
     if plan.rows_smem > SMEM_LIMIT:
         raise ValueError(f"K3 needs {plan.rows_smem} bytes of shared memory "
                          f"per block, more than {SMEM_LIMIT}")
@@ -222,8 +306,6 @@ def _check(xs, was, ba, wb, bb, wc, bc, *, h1=None, g=None):
         raise TypeError(f"K2/K3 take float32 or bfloat16 input, got {dt}")
     m, c = xs[0].shape
     na, nb, nc = was[0].shape[1], wb.shape[1], wc.shape[1]
-    if na > MAX_NA:
-        raise ValueError(f"K2/K3 support at most {MAX_NA} layer-a columns, got {na}")
     shapes = [(x, (m, c), dt) for x in xs] + [(w, (c, na), dt) for w in was] + [
         (wb, (na, nb), dt), (bb, (nb,), torch.float32), (wc, (nb, nc), dt),
     ]
@@ -266,10 +348,12 @@ def nin_head_fwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     refuse_graph_cut("K2 nin_head_fwd", *xs, *was, ba, wb, bb, wc, bc)
     from ssdn_tpu_torch.kernels import _build
 
-    lib = _build.load("nin_head", _SIGNATURES)
     k = len(xs)
     m, c = x0.shape
     na, nb, nc = was[0].shape[1], wb.shape[1], wc.shape[1]
+    plan = k2_plan(m, c, na, nb, nc, k, x0.dtype)
+    _check_k2_launch(plan, (*xs, *was, wb), c, na, nb, nc, x0.dtype)
+    lib = _build.load("nin_head", _SIGNATURES)
     out = torch.empty((m, nc), dtype=torch.float32, device=x0.device)
     h1 = (torch.empty((m, na), dtype=x0.dtype, device=x0.device)
           if save_h1 else None)

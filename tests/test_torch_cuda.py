@@ -155,6 +155,89 @@ def test_k2_save_h1_cuda_matches_twin(cuda, dtype, m, k, n_out):
     torch.testing.assert_close(h1.float(), ref_h1.float(), **tol)
 
 
+# ------------------- bf16 K2 / K2' on the tensor cores -------------------
+
+# widths that are not multiples of 16 (C 40, Na 72, Nb 24, Nc 3) and the
+# narrow model config's head (C 16, Na 32, Nb 16, Nc 9)
+K2_NARROW = {"c40-na72-nb24-nc3": dict(c=40, na=72, nb=24, n_out=3),
+             "c16-na32-nb16-nc9": dict(c=16, na=32, nb=16, n_out=9)}
+
+
+def _k2_bf16_matches_twin(args, save_h1):
+    before = (K2.launches, K2.launches_save_h1)
+    out, h1 = K2.nin_head_fwd(*args, save_h1=save_h1)
+    torch.cuda.synchronize()
+    assert (K2.launches, K2.launches_save_h1) == (before[0] + (not save_h1),
+                                                  before[1] + save_h1)
+    ref, ref_h1 = K2.torch_reference_fwd(*args)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=_head_twin_bar(ref, torch.bfloat16))
+    if not save_h1:
+        assert h1 is None
+        return
+    assert h1.dtype == torch.bfloat16 and h1.shape == ref_h1.shape
+    # one rounding of the same fp32 sum on each side (one bf16 ulp)
+    torch.testing.assert_close(h1.float(), ref_h1.float(), rtol=2 ** -7,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 4133])
+def test_k2_bf16_ragged_rows_match_twin(cuda, m, save_h1):
+    """The tensor-core kernel at ragged M: a tile of 128 rows (16 per
+    warp) part-filled, the rest zero and masked."""
+    _k2_bf16_matches_twin(_k2_operands(m + 3, m, 4, 10, torch.bfloat16),
+                          save_h1)
+
+
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("widths", list(K2_NARROW.values()), ids=list(K2_NARROW))
+@pytest.mark.parametrize("m,k", [(1000, 4), (77, 1)])
+def test_k2_bf16_narrow_widths_match_twin(cuda, m, k, widths, save_h1):
+    """The generic instantiation: padded columns zero in shared memory,
+    a part-filled last chunk of Na, masked on store."""
+    w = dict(widths)
+    n_out = w.pop("n_out")
+    _k2_bf16_matches_twin(_k2_operands(m + k, m, k, n_out, torch.bfloat16,
+                                       **w), save_h1)
+
+
+def test_k2_bf16_refuses_what_it_does_not_take(cuda):
+    """bf16 K2 raises, and launches nothing, for widths that are not
+    multiples of 8, C over its limit, Nc over 16 and operands off a 16-byte
+    boundary."""
+    before = (K2.launches, K2.launches_save_h1)
+    bf = torch.bfloat16
+    for widths, n_out, match in ((dict(c=20, na=72, nb=24), 3, "multiples of 8"),
+                                 (dict(c=264, na=72, nb=24), 3, "input channels"),
+                                 (dict(c=40, na=72, nb=24), 17, "Nc <= 16")):
+        args = _k2_operands(3, 64, 1, n_out, bf, **widths)
+        for save_h1 in (False, True):
+            with pytest.raises(ValueError, match=match):
+                K2.nin_head_fwd(*args, save_h1=save_h1)
+    xs, was, *rest = _k2_operands(3, 64, 1, 3, bf)
+    off = torch.empty(64 * 96 + 1, dtype=bf, device="cuda")[1:]
+    off = off.view(64, 96).copy_(xs[0])
+    for save_h1 in (False, True):
+        with pytest.raises(ValueError, match="16-byte"):
+            K2.nin_head_fwd([off], was, *rest, save_h1=save_h1)
+    assert (K2.launches, K2.launches_save_h1) == before
+
+
+def test_k2_bf16_is_bitwise_repeatable_and_one_kernel(cuda):
+    """At M = 262,144 (2,048 tiles over persistent blocks) two launches of
+    K2 give the same bits, two of K2' too, and K2 and K2' (one kernel, h1
+    stores aside) give the same `out` bits."""
+    args = _k2_operands(13, 262_144, 4, 10, torch.bfloat16)
+    a, b = K2.fused_nin_head(*args), K2.fused_nin_head(*args)
+    (c, h1c), (d, h1d) = (K2.nin_head_fwd(*args, save_h1=True),
+                          K2.nin_head_fwd(*args, save_h1=True))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(h1c, h1d)
+    assert torch.equal(a, c)
+
+
 def _k3_operands(seed, m, k, n_out, dtype, **widths):
     args = _k2_operands(seed, m, k, n_out, dtype, **widths)
     xs, was, ba, wb, bb, wc, bc = args

@@ -1,0 +1,203 @@
+"""K2/K2' (the fused head's forward) on the CPU: the launch plan
+(``kernels.nin_head.k2_plan``) and the checks the wrapper runs before a
+launch, the numbers that ``csrc/nin_head.cu`` computes the same way; the
+twin against the JAX package's ``_fwd_call`` in interpret mode at widths
+the bf16 tensor-core kernel pads; the probe's textual edits of the
+source; and the kernel build's cache key, which must change with any
+header the sources include. The kernels themselves
+run on the card (``tests/test_torch_cuda.py``)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import k2_probe
+import ssdn_tpu.ops.pallas.nin_head as NH
+from ssdn_tpu_torch.kernels import _build
+from ssdn_tpu_torch.kernels import nin_head as K2
+
+BF16, F32 = torch.bfloat16, torch.float32
+MODEL = dict(c=96, na=384, nb=96, nc=10, k=4)  # the blind flagship's head
+NARROW = {"c40-na72-nb24-nc3": dict(c=40, na=72, nb=24, nc=3, k=4),
+          "c16-na32-nb16-nc9": dict(c=16, na=32, nb=16, nc=9, k=4)}
+
+
+def _plan(m, dtype, c, na, nb, nc, k):
+    return K2.k2_plan(m, c, na, nb, nc, k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("na", [384, K2.MAX_NA])
+def test_shared_memory_fits_one_block(dtype, na):
+    plan = _plan(1_572_864, dtype, **dict(MODEL, na=na))
+    assert plan.smem <= K2.SMEM_LIMIT
+    if dtype == F32:
+        assert plan.instantiation == "fma"
+        assert plan.smem == 4 * 32 * (96 + na + 96)  # x, h1, h2 tiles, fp32
+    elif na == 384:
+        # x tiles 4 x 128 x (96 + 8), ring 2 x (Wa_i chunks 4 x 96 x (32 + 8)
+        # | Wb chunk 32 x (96 + 8)), h1 chunk / h2 rows 128 x (96 + 8), Wc
+        # 96 x (16 + 8): bf16 elements
+        assert plan.instantiation == "fixed"
+        assert plan.smem == 2 * (4 * 128 * 104 + 2 * (4 * 96 * 40 + 32 * 104)
+                                 + 128 * 104 + 96 * 24)
+    else:
+        assert plan.instantiation == "generic"  # other widths: run-time widths
+
+
+def test_bf16_plan_fits_one_block_per_sm():
+    plan = _plan(1_572_864, BF16, **MODEL)
+    # the H100 SM's 228 KB of shared memory, 1 KB reserved per block
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= 228 * 1024
+    assert plan.threads == 256 and plan.rows_per_block == 8 * 16
+    assert plan.chunks * 32 == 384
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 4133])
+def test_row_tiles_at_ragged_m(m):
+    bf = _plan(m, BF16, **MODEL)
+    assert bf.rows_per_block == 128 and bf.row_tiles == -(-m // 128)
+    assert _plan(m, F32, **MODEL).row_tiles == -(-m // 32)
+
+
+@pytest.mark.parametrize("widths", list(NARROW.values()), ids=list(NARROW))
+def test_narrow_widths_run_the_generic_instantiation(widths):
+    plan = _plan(1000, BF16, **widths)
+    assert plan.instantiation == "generic" and plan.row_tiles == 8
+    c, na, nb = widths["c"], widths["na"], widths["nb"]
+    cp, nbp = -(-c // 16) * 16, -(-nb // 16) * 16
+    assert plan.chunks == -(-na // 32)
+    assert plan.smem == 2 * (4 * 128 * (cp + 8)
+                             + 2 * (4 * cp * 40 + 32 * (nbp + 8))
+                             + 128 * (max(32, nbp) + 8) + nbp * 24)
+
+
+def test_launch_checks():
+    t = torch.zeros(16, dtype=BF16)
+    check = lambda w, tensors=(t,), dt=BF16: K2._check_k2_launch(
+        _plan(64, dt, **w), tensors, w["c"], w["na"], w["nb"], w["nc"], dt)
+    narrow = NARROW["c40-na72-nb24-nc3"]
+    check(narrow)  # valid
+    check(dict(MODEL, na=1024))  # bf16 walks Na in chunks: no MAX_NA
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check(dict(narrow, c=20))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check(dict(narrow, na=76))
+    check(dict(narrow, c=20), (t.float(),), F32)  # fp32 takes any width
+    with pytest.raises(ValueError, match="input channels"):
+        check(dict(narrow, c=264, k=1))
+    with pytest.raises(ValueError, match="Nc <= 16"):
+        check(dict(narrow, nc=17))
+    with pytest.raises(ValueError, match="Nc <= 16"):
+        check(dict(narrow, nb=136))
+    with pytest.raises(ValueError, match="16-byte"):
+        check(narrow, (t[1:],))
+    with pytest.raises(ValueError, match="layer-a columns"):
+        check(dict(MODEL, na=K2.MAX_NA + 8), (t.float(),), F32)
+    with pytest.raises(ValueError, match="shared memory"):
+        check(dict(MODEL, c=128))  # four 128-channel x tiles and the ring
+
+
+# ------------------- the twin against the TPU kernel -------------------
+
+
+def _inputs(seed, k, c, na, nb, nc, m=512):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale: (rng.standard_normal(s) * scale).astype(np.float32)
+    xs = [f(m, c, scale=0.5) for _ in range(k)]
+    xs[0][0, 0] = -0.0
+    return (xs, [f(c, na, scale=0.2) for _ in range(k)], f(na, scale=0.1),
+            f(na, nb, scale=0.2), f(nb, scale=0.1), f(nb, nc, scale=0.2),
+            f(nc, scale=0.1))
+
+
+@pytest.fixture
+def nh_interpret():
+    NH.INTERPRET = True
+    yield
+    NH.INTERPRET = False
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("widths", list(NARROW.values()), ids=list(NARROW))
+def test_twin_matches_pallas_at_narrow_widths(nh_interpret, widths, save_h1,
+                                              dtype):
+    """The twin of K2 / K2' against ``_fwd_call`` in interpret mode at
+    widths the bf16 tensor-core kernel pads (M 512: ``_pick_tile`` takes
+    multiples of 256). fp32: 1e-5 of the range (summation order). bf16:
+    h1 and h2 are rounded on both sides and JAX scales the input LeakyReLU
+    by bf16(0.1) where the port uses fp32 0.1 before its one rounding, so
+    one flipped rounding (2**-8) moves a result: 2**-6 of the range."""
+    w = dict(widths)
+    k, nc = w.pop("k"), w.pop("nc")
+    xs, was, ba, wb, bb, wc, bc = _inputs(7 + nc, k, nc=nc, **w)
+    lp = lambda a: jnp.asarray(a, dtype)
+    jx, jw = [lp(x) for x in xs], [lp(v) for v in was]
+    out, h1 = NH._fwd_call(jx, jw, jnp.asarray(ba)[None], lp(wb),
+                           jnp.asarray(bb)[None], lp(wc), jnp.asarray(bc)[None],
+                           tm=256, interpret=True, save_h1=save_h1)
+    tdt = BF16 if dtype == jnp.bfloat16 else F32
+    tt = lambda a, dt=tdt: torch.from_numpy(np.array(a, np.float32)).to(dt)
+    before = (K2.launches, K2.launches_save_h1)
+    got, got_h1 = K2.nin_head_fwd([tt(x) for x in jx], [tt(v) for v in jw],
+                                  tt(ba, F32), tt(lp(wb)), tt(bb, F32),
+                                  tt(lp(wc)), tt(bc, F32), save_h1=save_h1)
+    assert (K2.launches, K2.launches_save_h1) == before  # CPU: the twin
+    bar = lambda r: (1e-5 if dtype == jnp.float32 else 2 ** -6) * max(
+        float(np.abs(r).max()), 1e-30)
+    ref = np.asarray(out)
+    assert got.dtype == F32 and got.shape == ref.shape == (512, nc)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=bar(ref))
+    if not save_h1:
+        assert got_h1 is None and h1 is None
+        return
+    ref_h1 = np.asarray(h1, np.float32)
+    assert got_h1.dtype == tdt and got_h1.shape == ref_h1.shape
+    np.testing.assert_allclose(got_h1.float().numpy(), ref_h1, rtol=0,
+                               atol=bar(ref_h1))
+
+
+# ------------------- the probe's edits of the source -------------------
+
+
+@pytest.mark.parametrize("name", [*k2_probe.VARIANTS, *k2_probe.ABLATIONS])
+def test_probe_edits_match_the_source(name):
+    """``k2_probe.py`` times the design's variants and ablations as textual
+    edits of ``csrc/nin_head.cu``: each edit's text must occur in the
+    committed source exactly once, or the probe would time a copy that
+    differs from what it names."""
+    edits = {**k2_probe.VARIANTS, **k2_probe.ABLATIONS}[name]
+    with open(k2_probe.SOURCE) as f:
+        src = f.read()
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        assert old != new
+    edited = k2_probe.edited_source(edits)
+    assert (edited == src) == (not edits)
+
+
+# ------------------- the build's cache key -------------------
+
+
+def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
+    """A source may include any header in ``csrc/``: the built library's
+    name hashes them all, so an edited header never loads a stale
+    library. Needs no nvcc: ``_paths`` only hashes."""
+    (tmp_path / "nin_head.cu").write_text('#include "tc_bf16.cuh"\n')
+    (tmp_path / "tc_bf16.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build._paths("nin_head")[1]
+    assert _build._paths("nin_head")[1] == first  # a pure function of bytes
+    (tmp_path / "tc_bf16.cuh").write_text("// two\n")
+    second = _build._paths("nin_head")[1]
+    (tmp_path / "other.cuh").write_text("// new\n")
+    third = _build._paths("nin_head")[1]
+    (tmp_path / "nin_head.cu").write_text('#include "tc_bf16.cuh"\n// x\n')
+    fourth = _build._paths("nin_head")[1]
+    assert len({first, second, third, fourth}) == 4
+    # the committed sources: every library's key covers the shared header
+    monkeypatch.undo()
+    assert all(_build._paths(n)[1].startswith(_build.BUILD_DIR)
+               for n in _build.SOURCES)
