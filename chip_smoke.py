@@ -17,8 +17,11 @@ which fails the run (non-zero exit) on any error:
    step (M = 1,572,864, k 4; K2' and K3 launched twice and compared bit
    for bit, K2' against K2's out bits), K1 at the training shapes, and
    random ragged shapes and narrow widths (bf16 K2 / K2' at M 1 to 4,133
-   and C/Na/Nb 40/72/24 and 16/32/16); then times K2', K3 and K1 per
-   training step against their bounds, twins and library yardsticks;
+   and C/Na/Nb 40/72/24 and 16/32/16; bf16 K1 at Cin 1, 3, 97, 99, 144,
+   W 2, 4, 7 and BSD68's 512x352, each launched twice and compared bit for
+   bit); then times K2', K3 and K1 (bf16 and fp32, from each model's conv
+   arm step) per training step against their bounds, twins and library
+   yardsticks;
 4. the serving path: two bundled pretrained models (``gauss25_rgb`` in
    fp32, ``gauss5_50_blind_rgb`` in bf16) serve 5 requests each — four
    Kodak-size 768x512 images and one BSD68-size 481x321 — through
@@ -370,6 +373,7 @@ def kernels_vs_twins(torch, calls, report):
                              shape=f"M={m} k={k} n_out={nc}",
                              dtype=dname(torch, dt), max_abs_err=err[0],
                              max_rel_err=err[1], ok=err[2]))
+    rows += k1_bf16_rows(torch, g)
     # bf16 on the tensor cores: ragged row tiles and narrow widths (the
     # generic instantiation); each launched twice (same bits) and beside
     # K2' (the same kernel: the same out bits)
@@ -650,8 +654,8 @@ def blind_fixed_sigma(cfg):
 
 def capture_training(torch, models, report):
     """Operands of K2' and K3 in one batch-384 training step of each model
-    (head arm), and of K1 in one step of the bf16 model (conv arm),
-    recorded by wrapping the kernel wrappers."""
+    (head arm), and of K1 in one step of each model (conv arm: fp32 and
+    bf16), recorded by wrapping the kernel wrappers."""
     from ssdn_tpu_torch.kernels import nin_head as K2
     from ssdn_tpu_torch.kernels import shifted_conv as K1
     from ssdn_tpu_torch.train import make_train_step
@@ -666,11 +670,10 @@ def capture_training(torch, models, report):
             K2.nin_head_bwd = recorder(calls, ("k3", name), bwd)
             ts = make_train_step(train_cfg(cfg, "head_pallas"), device=DEVICE)
             ts.loss_and_grads(params, *ts.noisy_batch(batch, 0))
-            if cfg.model.compute_dtype == "bfloat16":
-                K1.shifted_conv3x3_bias_act = recorder(calls, ("k1t", name), k1)
-                ts = make_train_step(train_cfg(cfg, "conv_pallas"), device=DEVICE)
-                ts.loss_and_grads(params, *ts.noisy_batch(batch, 0))
-                K1.shifted_conv3x3_bias_act = k1
+            K1.shifted_conv3x3_bias_act = recorder(calls, ("k1t", name), k1)
+            ts = make_train_step(train_cfg(cfg, "conv_pallas"), device=DEVICE)
+            ts.loss_and_grads(params, *ts.noisy_batch(batch, 0))
+            K1.shifted_conv3x3_bias_act = k1
     finally:
         K2.nin_head_fwd, K2.nin_head_bwd = fwd, bwd
         K1.shifted_conv3x3_bias_act = k1
@@ -737,6 +740,40 @@ def random_head(torch, g, m, k, nc, dt, c=96, na=384, nb=96):
             (torch.randn(nb, nc, device=DEVICE, generator=g) * 0.1).to(dt),
             torch.randn(nc, device=DEVICE, generator=g) * 0.1]
     return xs, was, rest
+
+
+# bf16 K1's extra cases (n, Cin, H, W, Cout), each launched twice (the same
+# bits): Cin not a multiple of 8 (the gray models' 1, enc0's 3, the naive
+# decoder's dec1a 99 and gray 97) or over one pass (its dec2a-dec4a 144), W
+# of 2, 4 and 7 (tiles span images), and BSD68's 481x321 padded to 512x352
+# in both orientations (W 352 is not a multiple of the 64-wide tile)
+K1_BF16_CASES = [(2, 1, 512, 768, 48), (2, 3, 352, 512, 48),
+                 (2, 97, 512, 352, 96), (2, 99, 352, 512, 96),
+                 (2, 144, 176, 256, 96), (2, 144, 11, 16, 96),
+                 (1536, 48, 2, 2, 48), (1536, 96, 4, 4, 96), (2, 48, 5, 7, 96),
+                 (4, 1, 9, 7, 48), (2, 96, 352, 512, 96), (2, 48, 512, 352, 48)]
+
+
+def k1_bf16_rows(torch, g):
+    """bf16 K1 at ``K1_BF16_CASES`` on random operands: against the twin,
+    and launched twice for the same bits."""
+    from ssdn_tpu_torch.kernels import shifted_conv as K1
+
+    rows = []
+    for n, cin, h, w_, cout in K1_BF16_CASES:
+        x = torch.randn(n, cin, h, w_, device=DEVICE, generator=g)
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = torch.randn(cout, cin, 3, 3, device=DEVICE, generator=g) * (
+            2 / (9 * cin)) ** 0.5
+        b = torch.randn(cout, device=DEVICE, generator=g) * 0.1
+        got = K1.shifted_conv3x3_bias_act(x, w, b)
+        same = torch.equal(got, K1.shifted_conv3x3_bias_act(x, w, b))
+        err = k1_error(torch, got, K1.torch_reference(x, w, b))
+        rows.append(dict(kernel="k1", model="random", call=0,
+                         shape=f"{(n, cin, h, w_)}->{cout}", dtype="bfloat16",
+                         max_abs_err=err[0], max_rel_err=err[1],
+                         bitwise_repeatable=same, ok=err[2] and same))
+    return rows
 
 
 # bf16 K2 / K2''s extra cases (M, k, Nc, widths): ragged row counts for the
@@ -1278,10 +1315,13 @@ def main(argv=None) -> int:
             entry["launches"] += train_launches["k1"]
             entry["launches_by_path"] = {"serving": launches["k1"],
                                          "training": train_launches["k1"]}
-            t = next(v for (k, _), v in train_timing.items() if k == "k1t")
-            entry["per_train_step"] = {f: t[f] for f in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "launches_per_step")}
+            for key, dt in (("per_train_step", "bfloat16"),
+                            ("per_train_step_fp32", "float32")):
+                t = next(v for (k, _), v in train_timing.items()
+                         if k == "k1t" and v["dtype"] == dt)
+                entry[key] = {f: t[f] for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "launches_per_step")}
 
     if args.report:
         with open(args.report, "w") as f:

@@ -12,7 +12,9 @@ zero pad of the top rows before a VALID convolution (negative pads crop).
 
 Precision contract (as ``_resolve_precision`` in the JAX package): fp32
 inputs compute in true fp32 — cuDNN's default TF32 convolutions keep only
-~3 decimal digits, so the fp32 ops switch TF32 off around their convs.
+~3 decimal digits, so the fp32 convs switch TF32 off around their forward
+AND their backward (``_conv_valid``: the gradient convs run later, outside
+the forward's context, as JAX's transpose rules carry the op's precision).
 bf16 inputs take the fast path: cuDNN accumulates in fp32 and rounds the
 output to bf16, the same contract as the TPU's MXU path.
 """
@@ -59,6 +61,42 @@ def _precision(dtype: torch.dtype, precision: str | None):
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
+class _ConvAtPrecision(torch.autograd.Function):
+    """VALID conv2d of fp32 operands whose backward (the input- and
+    weight-gradient convs) runs under the same ``_precision`` as its
+    forward. Plain autograd would run them later, outside the forward's
+    context, at whatever TF32 setting the process has (cuDNN's default is
+    TF32 on)."""
+
+    @staticmethod
+    def forward(ctx, x, w, precision):
+        ctx.save_for_backward(x, w)
+        ctx.precision = precision
+        with _precision(x.dtype, precision):
+            return F.conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        # the op plain autograd calls for F.conv2d, with the same arguments
+        # (so the same algorithms and bits), inside the forward's precision
+        with _precision(x.dtype, ctx.precision):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, (1, 1), (0, 0), (1, 1), False, (0, 0), 1,
+                (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return dx, dw, None
+
+
+def _conv_valid(x: torch.Tensor, w: torch.Tensor,
+                precision: str | None) -> torch.Tensor:
+    """VALID conv2d at the precision contract: fp32 through
+    ``_ConvAtPrecision`` (forward and backward at ``precision``); other
+    dtypes, which the TF32 flags do not touch, on plain autograd."""
+    if x.dtype == torch.float32:
+        return _ConvAtPrecision.apply(x, w, precision)
+    return F.conv2d(x, w)
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -89,8 +127,7 @@ def conv2d(
         hpad = ((kh - 1) // 2, kh // 2)
     wpad = ((kw - 1) // 2, kw // 2)
     xp = F.pad(x, (wpad[0], wpad[1], hpad[0], hpad[1]))
-    with _precision(x.dtype, precision):
-        out = F.conv2d(xp, w.to(x.dtype))
+    out = _conv_valid(xp, w.to(x.dtype), precision)
     if b is not None:
         out = out + b.to(out.dtype).view(1, -1, 1, 1)
     if down_shift:
@@ -122,27 +159,37 @@ def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
 class _MatmulAccF32(torch.autograd.Function):
     """The JAX package's ``matmul_acc_f32`` custom VJP (``_mm_bwd``): the
     cotangent is cast to x's dtype before both products; dx is formed in
-    x's dtype, dw accumulates in fp32."""
+    x's dtype, dw accumulates in fp32.
+
+    The JAX op sets no precision of its own, and this one adds no option.
+    Its products are true fp32 products for fp32 operands (what the port's
+    fp32 contract and the CPU give): cuBLAS reads
+    ``torch.backends.cuda.matmul.allow_tf32``, so they run with that flag
+    False (``_precision(x.dtype, "highest")``) rather than relying on the
+    process to keep PyTorch's default. bf16 operands, upcast exactly, fit
+    TF32's mantissa; for them the flag is left as the process has it."""
 
     @staticmethod
     def forward(ctx, x, w):
         w_lp = w.to(x.dtype)
         ctx.save_for_backward(x, w_lp)
         ctx.w_dtype = w.dtype
-        return torch.matmul(x.float(), w_lp.float())
+        with _precision(x.dtype, "highest"):
+            return torch.matmul(x.float(), w_lp.float())
 
     @staticmethod
     def backward(ctx, g):
         x, w_lp = ctx.saved_tensors
         gl = g.to(x.dtype)
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.matmul(gl, w_lp.t())
-        if ctx.needs_input_grad[1]:
-            k = x.shape[-1]
-            dw = torch.matmul(x.reshape(-1, k).t().float(),
-                              gl.reshape(-1, g.shape[-1]).float())
-            dw = dw.to(ctx.w_dtype)
+        with _precision(x.dtype, "highest"):
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(gl, w_lp.t())
+            if ctx.needs_input_grad[1]:
+                k = x.shape[-1]
+                dw = torch.matmul(x.reshape(-1, k).t().float(),
+                                  gl.reshape(-1, g.shape[-1]).float())
+                dw = dw.to(ctx.w_dtype)
         return dx, dw
 
 
@@ -217,9 +264,8 @@ def shifted_upsample_concat_conv(
     cup = h.shape[1]
     w_up = w[:, :cup]
     w_skip = w[:, cup:]
-    with _precision(h.dtype, precision):
-        up = F.conv2d(F.pad(h, (1, 1, 1, 0)),
-                      _collapse_upsample_kernel(w_up).to(h.dtype))
+    up = _conv_valid(F.pad(h, (1, 1, 1, 0)),
+                     _collapse_upsample_kernel(w_up).to(h.dtype), precision)
     up = F.pixel_shuffle(up, 2)
     skip_part = conv2d(skip.to(h.dtype), w_skip, None, shifted=True,
                        precision=precision)

@@ -75,6 +75,112 @@ def test_k1_cuda_raises_instead_of_falling_back(cuda):
     assert K1.launches == before
 
 
+# The 12 K1 layers of a batch-384 training step (four rotations folded into
+# batch 1536, 64x64 patches: enc0-enc6, dec5b-dec1b), and layers of a
+# 768x512 request's trunk calls (batch 2): enc0, enc1 and dec1b at full
+# resolution, and dec4b, enc5 and enc6, whose widths (96, 48, 24) leave a
+# tile partly filled; as (n, cin, h, w, cout)
+K1_TRAIN_SHAPES = [(1536, 3, 64, 64, 48), (1536, 48, 64, 64, 48),
+                   (1536, 48, 32, 32, 48), (1536, 48, 16, 16, 48),
+                   (1536, 48, 8, 8, 48), (1536, 48, 4, 4, 48),
+                   (1536, 48, 2, 2, 48), (1536, 96, 4, 4, 96),
+                   (1536, 96, 8, 8, 96), (1536, 96, 16, 16, 96),
+                   (1536, 96, 32, 32, 96), (1536, 96, 64, 64, 96)]
+K1_REQUEST_SHAPES = [(2, 3, 512, 768, 48), (2, 48, 768, 512, 48),
+                     (2, 96, 512, 768, 96), (2, 96, 64, 96, 96),
+                     (2, 48, 32, 48, 48), (2, 48, 16, 24, 48)]
+# shapes the model's defaults do not reach on the fused decoder: the gray
+# models' Cin 1, the naive decoder's dec*a (Cin 144, 99, 97), narrow
+# widths, W of 2, 4 and 7, and BSD68's 481x321 padded to 512x352 (both
+# orientations)
+K1_ODD_SHAPES = [(2, 1, 64, 96, 48), (2, 144, 32, 48, 96), (2, 99, 64, 64, 96),
+                 (2, 97, 16, 16, 96), (3, 3, 6, 2, 48), (2, 48, 4, 4, 96),
+                 (2, 96, 7, 7, 48), (2, 48, 5, 7, 96), (1, 8, 9, 7, 16),
+                 (2, 5, 3, 4, 100), (2, 3, 352, 512, 48),
+                 (2, 96, 512, 352, 96), (2, 48, 11, 8, 48), (1, 96, 1, 1, 96)]
+
+
+def _k1_bf16_matches_twin(shape, seed):
+    """The bar is chip_smoke's (``k1_error``): within 2 bf16 ulps of the
+    twin's value, with 1e-5 of the output's range as the floor near zero.
+    Each side rounds one fp32 sum of 9*Cin products once, and the two sums
+    differ only in order; at the model's sizes (hundreds of millions of
+    outputs) some sum cancels to near zero, where two fp32 orders differ
+    by about 1e-5 absolute, so a fixed 1e-5 floor would not hold there for
+    any summation order."""
+    n, cin, h, w, cout = shape
+    x, wt, b = _k1_operands(seed, n, h, w, cin, cout, torch.bfloat16)
+    x[0, 0, 0, 0] = -0.0
+    before = K1.launches
+    got = K1.shifted_conv3x3_bias_act(x, wt, b)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (n, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    ref = K1.torch_reference(x, wt, b).float()
+    d = (got.float() - ref).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2 ** -126))) - 7)
+    bar = 2 * ulp + 1e-5 * ref.abs().max()
+    assert (d <= bar).all(), (
+        f"{int((d > bar).sum())} outputs off the bar, max |err| "
+        f"{d.max().item():.3e}, range {ref.abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("shape", K1_TRAIN_SHAPES + K1_REQUEST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_bf16_matches_twin_at_the_model_shapes(cuda, shape):
+    """bf16 K1 on the tensor cores at every training layer shape and at
+    request layer shapes, against the twin at chip_smoke's bar."""
+    _k1_bf16_matches_twin(shape, sum(shape))
+
+
+@pytest.mark.parametrize("shape", K1_ODD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_bf16_matches_twin_at_odd_shapes(cuda, shape):
+    """bf16 K1 where Cin is not a multiple of 8 (scalar staging), Cin
+    over one pass (144, 99, 97), Cout not 48 or 96, W narrower than a tile
+    (tiles span images) or not a multiple of the tile width."""
+    _k1_bf16_matches_twin(shape, 7 + sum(shape))
+
+
+def test_k1_bf16_keeps_the_sign_of_a_negative_zero(cuda):
+    """A negative pre-activation whose LeakyReLU rounds to zero in bf16
+    gives -0.0, as in the twin: the backward takes its mask from
+    signbit(out). Zero input, bias -1e-42: lrelu gives -1e-43, below
+    bf16's least subnormal."""
+    for cin, cout in ((96, 96), (3, 48)):
+        x, wt, b = _k1_operands(1, 2, 8, 16, cin, cout, torch.bfloat16)
+        x.zero_()
+        b = torch.full_like(b, -1e-42)
+        got = K1.shifted_conv3x3_bias_act(x, wt, b)
+        ref = K1.torch_reference(x, wt, b)
+        torch.cuda.synchronize()
+        assert torch.signbit(ref).all() and (ref == 0).all()
+        assert torch.equal(torch.signbit(got), torch.signbit(ref))
+        assert (got == 0).all()
+
+
+def test_k1_bf16_is_bitwise_repeatable(cuda):
+    """At a dec1b-sized call (batch 1536, 64x64, 96 -> 96: 49,152 tiles)
+    two launches give the same bits: no atomics, a fixed summation order."""
+    x, wt, b = _k1_operands(5, 1536, 64, 64, 96, 96, torch.bfloat16)
+    a = K1.shifted_conv3x3_bias_act(x, wt, b)
+    c = K1.shifted_conv3x3_bias_act(x, wt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+def test_k1_refuses_before_launching(cuda, monkeypatch):
+    """What K1's plan does not fit raises before any launch, and launches
+    nothing (no shape of the model is refused: the limit is lowered here)."""
+    x, wt, b = _k1_operands(0, 2, 16, 64, 96, 96, torch.bfloat16)
+    monkeypatch.setattr(K1, "SMEM_LIMIT", 48 * 1024)
+    before = K1.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.shifted_conv3x3_bias_act(x, wt, b)
+    assert K1.launches == before
+
+
 def _k2_operands(seed, m, k, n_out, dtype, c=96, na=384, nb=96):
     rng = np.random.default_rng(seed)
     f = lambda *s, scale: torch.from_numpy(
@@ -344,13 +450,9 @@ def test_kernel_wrappers_refuse_to_cut_the_graph(cuda):
     assert args[3].grad is not None and args[3].grad.abs().max() > 0
 
 
-@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 32, 64, 3)])
-@pytest.mark.parametrize("conv,head", [("lax", "lax"), ("lax", "pallas"),
-                                       ("pallas", "lax")])
-def test_training_loss_and_grads_on_the_card_match_the_cpu(cuda, conv, head,
-                                                           shape):
+def _training_case(conv, head, shape):
     """The whole forward + backward (SSDN gauss25 NLL, the stabilized
-    objective) in each backend arm on the card, against the torch ops on
+    objective) in one backend arm on the card, against the torch ops on
     the CPU, fp32 at narrow widths: the loss at 1e-5 relative, each leaf's
     grad at 1e-4 of its max abs. The kernel arms count their launches."""
     from ssdn_tpu_torch.config import (ModelConfig, TrainConfig,
@@ -395,3 +497,35 @@ def test_training_loss_and_grads_on_the_card_match_the_cpu(cuda, conv, head,
                 grads[name][key].cpu(), ref, rtol=0,
                 atol=1e-4 * max(ref.abs().max().item(), 1e-30),
                 msg=lambda s, n=name, k=key: f"{n}.{k}: {s}")
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 32, 64, 3)])
+@pytest.mark.parametrize("conv,head", [("lax", "lax"), ("lax", "pallas"),
+                                       ("pallas", "lax")])
+def test_training_loss_and_grads_on_the_card_match_the_cpu(cuda, conv, head,
+                                                           shape):
+    _training_case(conv, head, shape)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags set to True (cuDNN's default for convs; a process
+    that asked for TF32 matmuls too), restored afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 32, 64, 3)])
+def test_fp32_torch_ops_grads_are_true_fp32_with_tf32_on(tf32_on, shape):
+    """The torch-ops arm's fp32 step (conv_precision "highest") in a process
+    whose TF32 flags are True: its conv grads run at the forward's
+    precision and the head's ``matmul_acc_f32`` products with TF32 off, so
+    loss and grads still match the CPU at the bar of the case above."""
+    _training_case("lax", "lax", shape)

@@ -188,3 +188,107 @@ def test_conv2d_bf16_rounds_like_jax():
     ref32 = np.asarray(ref, np.float32)
     np.testing.assert_allclose(_nhwc(got.float()), ref32, rtol=2 ** -8,
                                atol=2 ** -8 * np.abs(ref32).max())
+
+
+def _conv_grads(fn, dtype, seed=10):
+    """(out, dx, dw) of fn(x, w) summed against a fixed cotangent."""
+    rng = np.random.default_rng(seed)
+    x = _nchw(_rand(rng, 2, 6, 7, 5)).to(dtype).requires_grad_(True)
+    w = _oihw(_rand(rng, 3, 3, 5, 4, scale=0.3)).requires_grad_(True)
+    out = fn(x, w)
+    g = torch.from_numpy(_rand(rng, *out.shape)).to(out.dtype)
+    dx, dw = torch.autograd.grad(out, (x, w), g)
+    return out, dx, dw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_grads_equal_plain_autograd(dtype):
+    """fp32 convs run through ``_ConvAtPrecision`` (their backward under the
+    forward's precision): the same forward and grads, bit for bit, as
+    plain autograd of the same conv on the CPU. bf16 stays on plain
+    autograd (cuDNN's TF32 flags do not touch it), so its graph and bits
+    are what they were."""
+    conv = lambda x, w: tops.conv2d(x, w, shifted=True)
+    plain = lambda x, w: torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x, (1, 1, 2, 0)), w.to(x.dtype))
+    got, ref = _conv_grads(conv, dtype), _conv_grads(plain, dtype)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    rng = np.random.default_rng(0)
+    x = _nchw(_rand(rng, 1, 4, 4, 5)).to(dtype).requires_grad_(True)
+    w = _oihw(_rand(rng, 3, 3, 5, 4)).requires_grad_(True)
+    names = set()
+    node = tops.conv2d(x, w, shifted=True).grad_fn
+    while node is not None:
+        names.add(type(node).__name__)
+        node = node.next_functions[0][0] if node.next_functions else None
+    assert any("ConvAtPrecision" in n for n in names) == (dtype == torch.float32)
+
+
+@pytest.mark.parametrize("precision,tf32", [(None, False), ("highest", False),
+                                            ("high", True), ("default", True)])
+def test_fp32_conv_backward_runs_at_the_forward_precision(monkeypatch,
+                                                          precision, tf32):
+    """The gradient convs of ``conv2d`` and ``shifted_upsample_concat_conv``
+    (fp32) run with cuDNN's and cuBLAS's TF32 flags set by ``precision``,
+    whatever the process has them at: "highest" (the default) turns TF32
+    off for the backward too; "high" / "default" allow it, as in JAX.
+    The flags are read where the gradient convs run."""
+    seen = []
+    orig = torch.ops.aten.convolution_backward
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return orig(*a, **k)
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", spy)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            rng = np.random.default_rng(1)
+            h = _nchw(_rand(rng, 1, 3, 4, 4)).requires_grad_(True)
+            skip = _nchw(_rand(rng, 1, 6, 8, 2)).requires_grad_(True)
+            w = _oihw(_rand(rng, 3, 3, 6, 3)).requires_grad_(True)
+            out = tops.shifted_upsample_concat_conv(h, skip, w,
+                                                    precision=precision)
+            out = tops.conv2d(out, w[:, :3], shifted=True, precision=precision)
+            out.sum().backward()
+            # 2 convs in the upsample-concat (phases, skip) + 1 (plain
+            # autograd's native backward would not pass through the spy)
+            assert seen == [(tf32, tf32)] * 3
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == (flag, flag)
+            seen.clear()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_acc_f32_products_ignore_a_tf32_process_flag(monkeypatch,
+                                                            dtype):
+    """With cuBLAS's TF32 flag set in the process, ``matmul_acc_f32``'s
+    fp32 products (forward, dx, dw) still run with it off; bf16 operands
+    (exact in TF32) leave the flag as the process has it."""
+    seen = []
+    orig = torch.matmul
+
+    def spy(*a, **k):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return orig(*a, **k)
+    monkeypatch.setattr(torch, "matmul", spy)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(_rand(rng, 2, 3, 5)).to(dtype).requires_grad_(True)
+        w = torch.from_numpy(_rand(rng, 5, 4)).requires_grad_(True)
+        tops.matmul_acc_f32(x, w).sum().backward()
+        assert seen == [dtype != torch.float32] * 3
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: no module of ``ssdn_tpu_torch`` and
-not ``chip_smoke.py``, ``k2_probe.py`` nor ``k3_probe.py`` imports JAX (or
-jaxlib, flax, optax) or anything of the JAX package ``ssdn_tpu``, and
-importing the port builds no kernel."""
+not ``chip_smoke.py`` nor a probe (``k1_probe.py``, ``k2_probe.py``,
+``k3_probe.py``) imports JAX (or jaxlib, flax, optax) or anything of the
+JAX package ``ssdn_tpu``, and importing the port builds no kernel."""
 
 import ast
 import os
@@ -15,8 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ssdn_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "k2_probe.py",
-                                                   "k3_probe.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "k1_probe.py",
+                                                   "k2_probe.py", "k3_probe.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ssdn_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
