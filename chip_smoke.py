@@ -16,12 +16,12 @@ which fails the run (non-zero exit) on any error:
    M = 393,216), K2' and K3 on the operands of a real batch-384 training
    step (M = 1,572,864, k 4; K2' and K3 launched twice and compared bit
    for bit, K2' against K2's out bits), K1 at the training shapes, and
-   random ragged shapes and narrow widths (bf16 K2 / K2' at M 1 to 4,133
-   and C/Na/Nb 40/72/24 and 16/32/16; bf16 K1 at Cin 1, 3, 97, 99, 144,
-   W 2, 4, 7 and BSD68's 512x352, each launched twice and compared bit for
-   bit); then times K2', K3 and K1 (bf16 and fp32, from each model's conv
-   arm step) per training step against their bounds, twins and library
-   yardsticks;
+   random ragged shapes and narrow widths (K2 / K2' in both dtypes at M 1
+   to 4,133 and C/Na/Nb 40/72/24 and 16/32/16, fp32 also at Na 512, C 3
+   and 99 and Nb 200 / Nc 40; bf16 K1 at Cin 1, 3, 97, 99, 144, W 2, 4, 7
+   and BSD68's 512x352, each launched twice and compared bit for bit);
+   then times K2', K3 and K1 (bf16 and fp32, from each model's step)
+   per training step against their bounds, twins and library yardsticks;
 4. the serving path: two bundled pretrained models (``gauss25_rgb`` in
    fp32, ``gauss5_50_blind_rgb`` in bf16) serve 5 requests each — four
    Kodak-size 768x512 images and one BSD68-size 481x321 — through
@@ -32,15 +32,17 @@ which fails the run (non-zero exit) on any error:
    the port's CPU run (which the test suite holds against the JAX package);
 5. the training path: from the same pretrained weights, one batch-384 step
    (64x64 crops of smooth synthetic images) of each kernel arm against the
-   torch-ops arm (fp32 and bf16) and the card's step against the port's
-   CPU step (32x32); then 30 steps of the bf16 model in each arm through
-   ``make_train_step`` (uint8 batch, noise on the card, forward, backward,
-   Adam): finite, the loss falls, and K1 / K2' / K3 launch 12 / 1 / 1 times
-   per step in their arms;
+   torch-ops arm (fp32 and bf16; K2' / K3 launch once and K1 12 times in
+   each kernel arm's step 0, counted around it) and the card's step
+   against the port's CPU step (32x32); then 30 steps of the bf16 model
+   in each arm through ``make_train_step`` (uint8 batch, noise on the
+   card, forward, backward, Adam): finite, the loss falls, and K1 / K2' /
+   K3 launch 12 / 1 / 1 times per step in their arms;
 6. times each arm per 768x512 request and per training step (patches/s),
    profiles one request and one step per arm (device busy and idle share),
    and each kernel per request against its bound, its twin and a library
-   yardstick.
+   yardstick (the kernels line: the bf16 model's numbers, the fp32 model's
+   under ``per_request_fp32`` / ``per_train_step_fp32``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits with code 2 and
@@ -225,6 +227,16 @@ def k2_error(got, ref, bf16):
     return d.max().item(), (d.max() / scale).item(), bool((d <= tol * scale).all())
 
 
+def fp32_error(got, ref, rtol=1e-5):
+    """(max abs err, max rel err, ok): fp32 within 1e-5 + rtol |ref| of the
+    twin (summation order only; the card tests' bars: out rtol 0, h1 rtol
+    1e-5)."""
+    d = (got - ref).abs()
+    scale = ref.abs().max().clamp_min(1e-30)
+    ok = bool((d <= 1e-5 + rtol * ref.abs()).all())
+    return d.max().item(), (d.max() / scale).item(), ok
+
+
 def k1_library(x, w, b, negative_slope=0.1):
     """K1's library yardstick: one cuDNN conv on the unpadded input
     (symmetric pad 2 rows; its first H rows are the causal-up conv) +
@@ -389,6 +401,24 @@ def kernels_vs_twins(torch, calls, report):
                          shape=_head_shape(m, k, nc, widths), dtype="bfloat16",
                          max_abs_err=err[0], max_rel_err=err[1],
                          bitwise_repeatable=same, ok=err[2] and same))
+    # fp32 on the FMA pipes: ragged row tiles, narrow and odd widths; each
+    # launched twice (same bits) and as K2' (the same out bits), out and h1
+    # against the twin at the card tests' bars
+    for m, k, nc, widths in K2_FP32_CASES:
+        xs, was, rest = random_head(torch, g, m, k, nc, torch.float32,
+                                    **widths)
+        got = K2.fused_nin_head(xs, was, *rest)
+        again = K2.fused_nin_head(xs, was, *rest)
+        with_h1, h1 = K2.nin_head_fwd(xs, was, *rest, save_h1=True)
+        same = torch.equal(got, again) and torch.equal(got, with_h1)
+        ref, ref_h1 = K2.torch_reference_fwd(xs, was, *rest)
+        e_out, e_h1 = fp32_error(got, ref, rtol=0), fp32_error(h1, ref_h1)
+        rows.append(dict(kernel="k2", model="random", call=0,
+                         shape=_head_shape(m, k, nc, widths), dtype="float32",
+                         max_abs_err=max(e_out[0], e_h1[0]),
+                         max_rel_err=max(e_out[1], e_h1[1]),
+                         bitwise_repeatable=same,
+                         ok=e_out[2] and e_h1[2] and same))
     torch.cuda.synchronize()
     report["kernel_vs_twin"] = rows
     for r in rows:
@@ -422,6 +452,9 @@ def serve(torch, models, report):
         per_arm[name, arm] = (K1.launches - k1_0, K2.launches - k2_0)
     launches = {"k1": K1.launches, "k2": K2.launches}
     report["main_path_launches"] = launches
+    report["main_path_launches_per_arm"] = {
+        f"{name}/{arm}": dict(zip(("k1", "k2"), n))
+        for (name, arm), n in per_arm.items()}
     print(f"  main path launches: K1 {launches['k1']}, K2 {launches['k2']}")
 
     for (name, arm), (k1n, k2n) in per_arm.items():
@@ -604,6 +637,14 @@ def time_kernels(torch, calls, launches, report, reps=10):
             ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
             bound_by=v["bound_by"], library_ms=v["library_ms"],
             per="one 768x512 request", dtype=v["dtype"], model=model))
+        # the fp32 model's request, and its launches on the serving path
+        m32, v32 = next((m, v) for (k, m), v in per.items()
+                        if k == kind and v["dtype"] == "float32")
+        arm = "conv_pallas" if kind == "k1" else "head_pallas"
+        line[-1]["per_request_fp32"] = dict(
+            {f: v32[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}, model=m32,
+            launches=report["main_path_launches_per_arm"][f"{m32}/{arm}"][kind])
     return line
 
 
@@ -781,6 +822,16 @@ def k1_bf16_rows(torch, g):
 # instantiation (not multiples of 16; the narrow model config's head)
 K2_BF16_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 127, 129, 4133)] + [
     (1000, 4, 3, dict(c=40, na=72, nb=24)), (1000, 4, 9, dict(c=16, na=32, nb=16))]
+
+
+# fp32 K2 / K2''s extra cases (M, k, Nc, widths): ragged row counts for the
+# FMA kernel's 128-row tiles, the narrow widths, Na at MAX_NA, C 3 and 99
+# (x rows off 16-byte boundaries: 4-byte pieces), and Nb 200 / Nc 40 (three
+# passes over Nb, three groups of out's columns)
+K2_FP32_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 127, 129, 4133)] + [
+    (1000, 4, 3, dict(c=40, na=72, nb=24)), (1000, 4, 9, dict(c=16, na=32, nb=16)),
+    (1000, 4, 10, dict(na=512)), (1000, 4, 10, dict(c=3)),
+    (1000, 4, 10, dict(c=99)), (1000, 4, 40, dict(nb=200))]
 
 
 def _head_shape(m, k, nc, widths):
@@ -999,7 +1050,16 @@ def train_agreement(torch, models, report):
                              arm="lax", against="lax (again)", loss=ref[0],
                              ok=True, **c))
             for arm in ("head_pallas", "conv_pallas"):
+                reset_counts()
                 got = _step0(torch, cfg, params, arm, batch)
+                counts = read_counts()
+                report.setdefault("train_agreement_launches", {})[
+                    f"{name}/{wname}/{arm}"] = counts
+                want = (dict(k1=0, k2=0, k2_save_h1=1, k3=1)
+                        if arm == "head_pallas" else
+                        dict(k1=K1_PER_TRUNK, k2=0, k2_save_h1=0, k3=0))
+                check(counts == want, f"{name}/{wname}/{arm} step 0: "
+                                      f"launches {counts}, expected {want}")
                 twin = _step0(torch, cfg, params, arm, batch, twins=True)
                 for against, r in (("lax", ref), ("twins", twin)):
                     c = _compare(torch, got, r)
@@ -1245,6 +1305,15 @@ def training_line(report, timing, launches):
             bound_by=v["bound_by"], library_ms=v["library_ms"],
             per=f"one batch-{TRAIN_BATCH} training step", dtype=v["dtype"],
             model=model, **({"parts_ms": v["parts_ms"]} if kind == "k3" else {})))
+        # the fp32 model's step 0, and its launches on that path
+        m32, v32 = next((m, v) for (k, m), v in timing.items()
+                        if k == kind and v["dtype"] == "float32")
+        key = {"k2p": "k2_save_h1", "k3": "k3"}[kind]
+        line[-1]["per_train_step_fp32"] = dict(
+            {f: v32[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}, model=m32,
+            launches=report["train_agreement_launches"][
+                f"{m32}/zoo/head_pallas"][key])
     return line
 
 

@@ -56,14 +56,37 @@
 //    copies: generic widths, a second barrier per chunk, two 4-warp blocks
 //    per SM) lost on the H100 in every case (PERF.md section 6); what
 //    bounds it is in section 7.
-//  - fp32, the parity path, on the FMA pipes (TF32 would break the port's
-//    fp32 bars): each block owns TM = 32 rows. It stages each branch's x
-//    tile (after LeakyReLU) in shared memory, accumulates h1 in fp32
-//    registers (each of 256 threads owns up to 2 of the Na columns for all
-//    32 rows), writes the h1 tile to shared memory, computes h2
-//    from it into shared memory (8 rows x 1 column per work item), and
-//    writes only the fp32 output. Shared memory is TM*(C+Na+Nb) floats
-//    (72 KB at the model's widths). A ragged last tile is masked.
+//  - fp32, the parity path and the fp32 zoo's serving path, on the FMA
+//    pipes: true fp32 (a TF32 or 3xTF32 mma would break the port's fp32
+//    bars). What bounds it: operations, 0.58 TFLOP per batch-384 step at
+//    67 TFLOP/s, 8.7 ms (its bytes, 2.4 GB of x in and, training, 2.4 GB of
+//    h1 out, take 1.4 ms). The design follows the bf16 one: persistent
+//    blocks (one per SM, 256 threads) walk tiles of 128 rows; Na runs in
+//    chunks of 128 columns and pre2 (128 x 96 per tile) stays in registers
+//    across the chunks, so the full h1 tile is never resident. Per chunk:
+//      1. layer a's K runs in slices of 32 input channels through a 2-stage
+//         ring in shared memory (Wa_i[slice, chunk] by cp.async; the x
+//         slice through registers, where its LeakyReLU and the transpose
+//         to [channel][row] happen); the next step's slices load while this
+//         one computes, one barrier per slice; Wb[chunk, :] lands beside
+//         the first;
+//      2. h1 = lrelu(acc + ba) into shared memory ([column][row]), and in
+//         training to h1out in 16-byte row pieces;
+//      3. pre2 += h1_chunk Wb[chunk, :];
+//    then h2 = lrelu(pre2 + bb) into shared memory and out = h2 Wc + bc.
+//    The weights cross L2 once per 128 rows: 9.1 GB per step, where the
+//    first fp32 kernel's 32-row tiles, reading them inside the FMA loop,
+//    took 36 GB. No FMA reads global memory: each thread holds register
+//    micro-tiles (8 x 8 of the h1 chunk, 8 x 6 of pre2) and per K step
+//    loads 4 floats of each operand with LDS.128 (h1: 64 FMAs per 16
+//    floats read; pre2: 48 per 14). Widths are run-time and none is
+//    refused: ragged M, C, Na, Nb and Nc are zero in shared memory and
+//    masked on store; rows off 16-byte boundaries (C or Na not a multiple
+//    of 4) move in 4-byte pieces; Nb over 96 runs in passes (layer a
+//    recomputed per pass, out's partial sum carried in `out`), Nc over 16
+//    in groups of 16. Every sum runs in the order of the first fp32
+//    kernel (branches, then channels; then Na; then Nb), so the bits match
+//    it.
 //
 // Left for later: wgmma and TMA.
 
@@ -71,6 +94,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <cstdint>
 
 #include "tc_bf16.cuh"
 
@@ -78,144 +102,10 @@ using namespace ssdn_tc;
 
 namespace {
 
-constexpr int TM = 32;       // rows per block
-constexpr int THREADS = 256;
-constexpr int QA = 2;        // layer-a columns per thread: Na <= QA*THREADS
 constexpr int MAX_BRANCHES = 4;
-
-struct HeadArgs {
-  const float* x[MAX_BRANCHES];
-  const float* wa[MAX_BRANCHES];
-  const float* ba;
-  const float* wb;
-  const float* bb;
-  const float* wc;
-  const float* bc;
-  float* out;
-  float* h1out;  // (M, Na), or null (inference)
-  int k, M, C, Na, Nb, Nc;
-  float slope;
-};
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : slope * v;
-}
-
-__global__ void __launch_bounds__(THREADS) nin_head_fwd_kernel(HeadArgs a) {
-  // Tiles are stored column-major ([column][row]) so that one float4 read
-  // gives four rows of a column: xs [C][TM], h1 [Na][TM], h2 [Nb][TM].
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // lrelu(x_i)
-  float* h1 = xs + TM * a.C;
-  float* h2 = h1 + TM * a.Na;
-
-  const long long r0 = (long long)blockIdx.x * TM;
-  const int rows = (int)min((long long)TM, (long long)a.M - r0);
-  const int tid = threadIdx.x;
-
-  // layer a: thread owns columns tid + q*THREADS for all TM rows
-  float acc[QA][TM];
-#pragma unroll
-  for (int q = 0; q < QA; ++q)
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[q][r] = 0.f;
-
-  for (int br = 0; br < a.k; ++br) {
-    const float* x = a.x[br];
-    const float* wa = a.wa[br];
-    __syncthreads();  // the previous branch's tile is no longer read
-    for (int e = tid; e < TM * a.C; e += THREADS) {
-      const int c = e / TM;
-      const int r = e - c * TM;
-      const float v = r < rows ? x[(r0 + r) * a.C + c] : 0.f;
-      xs[e] = lrelu(v, a.slope);
-    }
-    __syncthreads();
-    for (int c = 0; c < a.C; ++c) {
-      const float4* xc = reinterpret_cast<const float4*>(xs + c * TM);
-#pragma unroll
-      for (int q = 0; q < QA; ++q) {
-        const int j = tid + q * THREADS;
-        const float wv = j < a.Na ? wa[(long long)c * a.Na + j] : 0.f;
-#pragma unroll
-        for (int r4 = 0; r4 < TM / 4; ++r4) {
-          const float4 v = xc[r4];
-          acc[q][4 * r4 + 0] = fmaf(v.x, wv, acc[q][4 * r4 + 0]);
-          acc[q][4 * r4 + 1] = fmaf(v.y, wv, acc[q][4 * r4 + 1]);
-          acc[q][4 * r4 + 2] = fmaf(v.z, wv, acc[q][4 * r4 + 2]);
-          acc[q][4 * r4 + 3] = fmaf(v.w, wv, acc[q][4 * r4 + 3]);
-        }
-      }
-    }
-  }
-  float* h1out = a.h1out;
-#pragma unroll
-  for (int q = 0; q < QA; ++q) {
-    const int j = tid + q * THREADS;
-    if (j < a.Na) {
-      const float bj = a.ba[j];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float v = lrelu(acc[q][r] + bj, a.slope);
-        h1[j * TM + r] = v;
-        // consecutive threads write consecutive columns of one row
-        if (h1out != nullptr && r < rows)
-          h1out[(r0 + r) * a.Na + j] = v;
-      }
-    }
-  }
-  __syncthreads();
-
-  // layer b: one work item = 8 rows x 1 column
-  const float* wb = a.wb;
-  for (int e = tid; e < (TM / 8) * a.Nb; e += THREADS) {
-    const int rg = e / a.Nb;
-    const int j = e - rg * a.Nb;
-    float s[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = 0.f;
-    for (int c = 0; c < a.Na; ++c) {
-      const float wv = wb[c * a.Nb + j];
-      const float4* hc = reinterpret_cast<const float4*>(h1 + c * TM + rg * 8);
-      const float4 u = hc[0], v = hc[1];
-      s[0] = fmaf(u.x, wv, s[0]);
-      s[1] = fmaf(u.y, wv, s[1]);
-      s[2] = fmaf(u.z, wv, s[2]);
-      s[3] = fmaf(u.w, wv, s[3]);
-      s[4] = fmaf(v.x, wv, s[4]);
-      s[5] = fmaf(v.y, wv, s[5]);
-      s[6] = fmaf(v.z, wv, s[6]);
-      s[7] = fmaf(v.w, wv, s[7]);
-    }
-    const float bj = a.bb[j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      h2[j * TM + rg * 8 + i] = lrelu(s[i] + bj, a.slope);
-  }
-  __syncthreads();
-
-  // layer c: fp32 output, ragged rows masked
-  const float* wc = a.wc;
-  for (int e = tid; e < TM * a.Nc; e += THREADS) {
-    const int j = e / TM;
-    const int r = e - j * TM;
-    if (r >= rows) continue;
-    float s = 0.f;
-    for (int c = 0; c < a.Nb; ++c)
-      s = fmaf(h2[c * TM + r], wc[c * a.Nc + j], s);
-    a.out[(r0 + r) * a.Nc + j] = s + a.bc[j];
-  }
-}
-
-int launch_f32(const HeadArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * TM * (size_t)(a.C + a.Na + a.Nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      nin_head_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((a.M + TM - 1) / TM);
-  nin_head_fwd_kernel<<<grid, THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // --------------------------- bf16 on the tensor cores ---------------------------
@@ -535,12 +425,403 @@ int launch_bf16(const TcArgs& a, cudaStream_t stream) {
   return launch_tc<0, 0, 0, 0>(a, stream);
 }
 
+// ----------------------------- fp32 on the FMA pipes -----------------------------
+
+// Block geometry (kernels/nin_head.py's k2_plan has the same numbers): F_TM
+// rows per tile, Na in chunks of F_NCH columns, the K of layer a in slices of
+// F_KS input channels through a 2-stage ring, pre2 in passes of F_NBP
+// columns, out in groups of F_NCG columns, one block per SM.
+constexpr int F_TM = 128;
+constexpr int F_NCH = 128;
+constexpr int F_KS = 32;
+constexpr int F_NBP = 96;
+constexpr int F_NCG = 16;
+constexpr int F_THREADS = 256;
+constexpr int F_MINB = 1;
+constexpr int F_LDT = F_TM + 4;  // [column][row] tiles: x slices, h1, h2
+// Shared memory, in floats: the x slices (2 x F_KS x F_LDT, after
+// LeakyReLU, [channel][row]), the Wa_i slices (2 x F_KS x F_NCH), the h1
+// chunk, then h2 (F_NCH x F_LDT, [column][row]), Wb[chunk, pass] (F_NCH x
+// F_NBP) and Wc[pass, group] (F_NBP x F_NCG).
+constexpr int F_XS = F_KS * F_LDT;
+constexpr int F_WS = F_KS * F_NCH;
+constexpr int F_OFF_W = 2 * F_XS;
+constexpr int F_OFF_H = F_OFF_W + 2 * F_WS;
+constexpr int F_OFF_B = F_OFF_H + F_NCH * F_LDT;
+constexpr int F_OFF_C = F_OFF_B + F_NCH * F_NBP;
+constexpr int F_SMEM = 4 * (F_OFF_C + F_NBP * F_NCG);  // bytes
+static_assert(F_SMEM <= SMEM_LIMIT, "fp32 K2 exceeds a block's shared memory");
+
+struct HeadArgs {
+  const float* x[MAX_BRANCHES];
+  const float* wa[MAX_BRANCHES];
+  const float* ba;
+  const float* wb;
+  const float* bb;
+  const float* wc;
+  const float* bc;
+  float* out;
+  float* h1out;  // (M, Na), or null (inference)
+  int k, M, C, Na, Nb, Nc;
+  float slope;
+  // 16-byte pieces: the width a multiple of 4 and the operands on 16-byte
+  // boundaries (else 4-byte pieces)
+  bool vec_x, vec_wa, vec_wb, vec_h1;
+};
+
+// dst <- 16 (4) bytes at src, or zeros where `in` is false (nothing read)
+__device__ __forceinline__ void cp_async16_or_zero(float* dst, const float* src,
+                                                   bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4_or_zero(float* dst, const float* src,
+                                                  bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+// A step of a block's walk: one slice of layer a's K (branch br, channels
+// c0..) for one chunk of Na in one pass over Nb of one tile.
+struct FmaStep {
+  int tile, pass, chunk, br, c0;
+};
+
+// Thread (ty, tx) owns rows 4ty.. and 64 + 4ty.. of its tile (8) and, in
+// layer a, columns 4tx.. and 64 + 4tx.. of the chunk (8), in layer b
+// columns 4tx.. and 64 + 2tx.. of the pass (6): register micro-tiles, one
+// outer product per K step from two LDS.128 of each operand (one LDS.128 and
+// one LDS.64 of Wb). A quarter-warp shares ty and holds 8 consecutive tx, so
+// every shared read is a broadcast or 128 contiguous bytes.
+__global__ void __launch_bounds__(F_THREADS, F_MINB)
+head_fwd_fma_kernel(HeadArgs a) {
+  extern __shared__ float4 smem_f[];
+  float* sm = reinterpret_cast<float*>(smem_f);
+  float* sX = sm;
+  float* sW = sm + F_OFF_W;
+  float* sH = sm + F_OFF_H;
+  float* sB = sm + F_OFF_B;
+  float* sC = sm + F_OFF_C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  const int C = a.C, Na = a.Na, Nb = a.Nb, Nc = a.Nc;
+  const int ks = a.k * ((C + F_KS - 1) / F_KS);  // slices per chunk
+  const int nch = (Na + F_NCH - 1) / F_NCH;
+  const int npass = (Nb + F_NBP - 1) / F_NBP;
+  const int ngrp = (Nc + F_NCG - 1) / F_NCG;
+  const bool wc_resident = npass == 1 && ngrp == 1;
+  const int n_tiles = (a.M + F_TM - 1) / F_TM;
+  const int my_tiles = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                       (int)gridDim.x;
+  const int steps = my_tiles * npass * nch * ks;
+
+  // the step after st, in the order of the loops below (no divisions)
+  auto advance = [&](FmaStep& st) {
+    st.c0 += F_KS;
+    if (st.c0 < C) return;
+    st.c0 = 0;
+    if (++st.br < a.k) return;
+    st.br = 0;
+    if (++st.chunk < nch) return;
+    st.chunk = 0;
+    if (++st.pass < npass) return;
+    st.pass = 0;
+    st.tile += gridDim.x;
+  };
+  // the x rows of a step, in registers: row tid / 2 of the tile, channels
+  // c0 + 4 (tid % 2) + 8i .. + 3 of the slice's branch (a warp reads 16
+  // rows x 32 bytes); zero past M and C
+  float4 xv[4];
+  auto load_x = [&](const FmaStep& st) {
+    const long long r = (long long)st.tile * F_TM + (tid >> 1);
+    const bool rin = r < a.M;
+    const int cc = st.c0 + (tid & 1) * 4;
+    const float* src = a.x[st.br] + (rin ? r * C + cc : 0);
+    if (a.vec_x) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        xv[i] = rin && cc + 8 * i < C
+                    ? __ldg(reinterpret_cast<const float4*>(src + 8 * i))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = rin && cc + 8 * i + e < C ? __ldg(src + 8 * i + e) : 0.f;
+        xv[i] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+  // ... LeakyReLU, transposed into a [channel][row] slice: for each store a
+  // warp's 32 lanes hit 32 distinct banks (16 rows; channels 4 apart, 16
+  // banks apart at a stride of F_LDT)
+  auto store_x = [&](float* dst) {
+    float* d = dst + (tid & 1) * 4 * F_LDT + (tid >> 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      d[8 * i * F_LDT] = lrelu(xv[i].x, a.slope);
+      d[(8 * i + 1) * F_LDT] = lrelu(xv[i].y, a.slope);
+      d[(8 * i + 2) * F_LDT] = lrelu(xv[i].z, a.slope);
+      d[(8 * i + 3) * F_LDT] = lrelu(xv[i].w, a.slope);
+    }
+  };
+  // Wa_i rows c0 + tid / 32 + 8i (the slice), columns j0 + 4 (tid % 32)..
+  // (the chunk); zero past C and Na
+  auto load_wa = [&](const FmaStep& st, float* dst) {
+    const int r = st.c0 + (tid >> 5), c = st.chunk * F_NCH + (tid & 31) * 4;
+    const float* base = a.wa[st.br];
+    const float* src = base + (r < C ? (size_t)r * Na + c : 0);
+    const size_t step = 8 * (size_t)Na;
+    float* d = dst + (tid >> 5) * F_NCH + (tid & 31) * 4;
+    if (a.vec_wa) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = r + 8 * i < C && c < Na;
+        cp_async16_or_zero(d + 8 * i * F_NCH, in ? src + i * step : base, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = r + 8 * i < C && c + e < Na;
+          cp_async4_or_zero(d + 8 * i * F_NCH + e, in ? src + i * step + e : base,
+                            in);
+        }
+    }
+  };
+  // Wb rows j0.. (the chunk), columns nb0.. (the pass); zero past Na, Nb
+  auto load_wb = [&](int pass, int chunk) {
+    const int j0 = chunk * F_NCH, nb0 = pass * F_NBP;
+#pragma unroll
+    for (int i = 0; i < F_NCH * F_NBP / 4 / F_THREADS; ++i) {
+      const int e = tid + i * F_THREADS, r = e / (F_NBP / 4);
+      const int c = (e - r * (F_NBP / 4)) * 4;
+      const bool rin = j0 + r < Na;
+      const float* src = a.wb + (rin ? (size_t)(j0 + r) * Nb + nb0 + c : 0);
+      float* d = sB + r * F_NBP + c;
+      if (a.vec_wb) {
+        const bool in = rin && nb0 + c < Nb;
+        cp_async16_or_zero(d, in ? src : a.wb, in);
+      } else {
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const bool in = rin && nb0 + c + e4 < Nb;
+          cp_async4_or_zero(d + e4, in ? src + e4 : a.wb, in);
+        }
+      }
+    }
+  };
+  // Wc rows nb0.. (the pass), columns n0.. (the group); zero past Nb, Nc
+  auto load_wc = [&](int pass, int grp) {
+    for (int e = tid; e < F_NBP * F_NCG; e += F_THREADS) {
+      const int r = pass * F_NBP + e / F_NCG, c = grp * F_NCG + e % F_NCG;
+      sC[e] = r < Nb && c < Nc ? a.wc[(size_t)r * Nc + c] : 0.f;
+    }
+  };
+
+  if (wc_resident) load_wc(0, 0);
+  FmaStep next = {(int)blockIdx.x, 0, 0, 0, 0};  // step 0, then s + 1
+  load_x(next);
+  load_wa(next, sW);
+  advance(next);
+  cp_async_commit();
+  store_x(sX);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int s = 0;  // the step whose x and Wa slices are in stage s % 2
+  for (int it = 0; it < my_tiles; ++it) {
+    const long long r0 = (long long)(blockIdx.x + it * gridDim.x) * F_TM;
+    for (int pass = 0; pass < npass; ++pass) {
+      float pre[8][6] = {};
+      for (int chunk = 0; chunk < nch; ++chunk) {
+        // ---- layer a: acc = sum_i lrelu(x_i) Wa_i[:, chunk] ----
+        float acc[8][8] = {};
+        load_wb(pass, chunk);  // waited for at the end of the first step
+        for (int q = 0; q < ks; ++q, ++s) {
+          const int cur = s & 1;
+          const bool more = s + 1 < steps;
+          if (more) {  // the next step's slices: x to registers, Wa async
+            load_x(next);
+            load_wa(next, sW + (cur ^ 1) * F_WS);
+            advance(next);
+          }
+          cp_async_commit();
+          const float* xa = sX + cur * F_XS + ty * 4;
+          const float* wa = sW + cur * F_WS + tx * 4;
+#pragma unroll 16
+          for (int kk = 0; kk < F_KS; ++kk) {
+            const float4 a0 = *reinterpret_cast<const float4*>(xa + kk * F_LDT);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(xa + kk * F_LDT + 64);
+            const float4 b0 = *reinterpret_cast<const float4*>(wa + kk * F_NCH);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(wa + kk * F_NCH + 64);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+          if (more) store_x(sX + (cur ^ 1) * F_XS);
+          cp_async_wait<0>();
+          __syncthreads();  // stage s is free; stage s + 1 (and Wb) landed
+        }
+
+        // ---- h1 = lrelu(acc + ba) into sH, [column][row] ----
+        const int j0 = chunk * F_NCH;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = (j < 4 ? 0 : 60) + tx * 4 + j;
+          const float bj = j0 + c < Na ? a.ba[j0 + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i][j] = lrelu(acc[i][j] + bj, a.slope);
+          *reinterpret_cast<float4*>(sH + c * F_LDT + ty * 4) =
+              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+          *reinterpret_cast<float4*>(sH + c * F_LDT + 64 + ty * 4) =
+              make_float4(acc[4][j], acc[5][j], acc[6][j], acc[7][j]);
+        }
+        if (a.h1out != nullptr && pass == 0) {  // training: h1, row pieces
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const long long r = r0 + (i < 4 ? 0 : 60) + ty * 4 + i;
+            if (r >= a.M) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = j0 + h * 64 + tx * 4;
+              float* d = a.h1out + r * Na + c;
+              if (a.vec_h1) {
+                if (c < Na)
+                  *reinterpret_cast<float4*>(d) =
+                      make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                                  acc[i][4 * h + 2], acc[i][4 * h + 3]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (c + e < Na) d[e] = acc[i][4 * h + e];
+              }
+            }
+          }
+        }
+        __syncthreads();  // the h1 chunk is whole
+
+        // ---- layer b: pre2 += h1_chunk Wb[chunk, pass] ----
+        const float* ha = sH + ty * 4;
+#pragma unroll 4
+        for (int kk = 0; kk < F_NCH; ++kk) {
+          const float4 a0 = *reinterpret_cast<const float4*>(ha + kk * F_LDT);
+          const float4 a1 = *reinterpret_cast<const float4*>(ha + kk * F_LDT + 64);
+          const float4 b0 =
+              *reinterpret_cast<const float4*>(sB + kk * F_NBP + tx * 4);
+          const float2 b1 =
+              *reinterpret_cast<const float2*>(sB + kk * F_NBP + 64 + tx * 2);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[6] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 6; ++j) pre[i][j] = fmaf(av[i], bv[j], pre[i][j]);
+        }
+        __syncthreads();  // sH and sB are free
+      }
+
+      // ---- h2 = lrelu(pre2 + bb) into sH, [column][row] ----
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        const int c = j < 4 ? tx * 4 + j : 60 + tx * 2 + j;
+        const int n = pass * F_NBP + c;
+        const float bj = n < Nb ? a.bb[n] : 0.f;
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = lrelu(pre[i][j] + bj, a.slope);
+        *reinterpret_cast<float4*>(sH + c * F_LDT + ty * 4) =
+            make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(sH + c * F_LDT + 64 + ty * 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      }
+
+      // ---- out = h2 Wc + bc: lane's 4 rows x warp's 2 columns per group;
+      // a pass after the first continues the sum it stored ----
+      const long long rr = r0 + lane * 4;
+      for (int grp = 0; grp < ngrp; ++grp) {
+        if (!wc_resident) {
+          if (grp > 0) __syncthreads();  // the last group's Wc is read
+          load_wc(pass, grp);
+        }
+        __syncthreads();  // h2 (and Wc) in place
+        const int c0 = grp * F_NCG + warp * 2;
+        float o[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            o[i][c] = pass > 0 && rr + i < a.M && c0 + c < Nc
+                          ? a.out[(rr + i) * Nc + c0 + c] : 0.f;
+#pragma unroll 8
+        for (int kk = 0; kk < F_NBP; ++kk) {
+          const float4 h = *reinterpret_cast<const float4*>(sH + kk * F_LDT +
+                                                            lane * 4);
+          const float2 w =
+              *reinterpret_cast<const float2*>(sC + kk * F_NCG + warp * 2);
+          const float hv[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            o[i][0] = fmaf(hv[i], w.x, o[i][0]);
+            o[i][1] = fmaf(hv[i], w.y, o[i][1]);
+          }
+        }
+        const bool last = pass == npass - 1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (rr + i < a.M && c0 + c < Nc)
+              a.out[(rr + i) * Nc + c0 + c] =
+                  last ? o[i][c] + a.bc[c0 + c] : o[i][c];
+      }
+    }
+  }
+}
+
+// As launch_tc: attributes set and the SM count read on a device's first
+// launch; the grid is min(tiles, SMs x F_MINB), persistent blocks.
+int launch_f32(const HeadArgs& a, cudaStream_t stream) {
+  static std::atomic<int> sms_of[MAX_DEVICES];  // 0: not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    err = cudaFuncSetAttribute(head_fwd_fma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               F_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(head_fwd_fma_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const int tiles = (int)(((long long)a.M + F_TM - 1) / F_TM);
+  const int grid = tiles < sms * F_MINB ? tiles : sms * F_MINB;
+  head_fwd_fma_kernel<<<grid, F_THREADS, F_SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). Unused branch
 // pointers (index >= k) may be null, and so may h1 (inference: h1 is not
 // written). bf16 (is_bf16 1): C, Na, Nb multiples of 8, C <= 256, Nb <=
-// 128, Nc <= 16, x_i, Wa_i and Wb on 16-byte boundaries. fp32: Na <= 512.
+// 128, Nc <= 16, x_i, Wa_i and Wb on 16-byte boundaries. fp32: any widths.
 // Launches on `stream`, no synchronise.
 extern "C" int nin_head_fwd(const void* x0, const void* x1, const void* x2,
                             const void* x3, const void* wa0, const void* wa1,
@@ -571,7 +852,6 @@ extern "C" int nin_head_fwd(const void* x0, const void* x1, const void* x2,
     a.slope = slope;
     return launch_bf16(a, s);
   }
-  if (Na > QA * THREADS) return (int)cudaErrorInvalidValue;
   HeadArgs a;
   for (int i = 0; i < MAX_BRANCHES; ++i) {
     a.x[i] = static_cast<const float*>(xs[i]);
@@ -586,5 +866,16 @@ extern "C" int nin_head_fwd(const void* x0, const void* x1, const void* x2,
   a.h1out = static_cast<float*>(h1);
   a.k = k; a.M = M; a.C = C; a.Na = Na; a.Nb = Nb; a.Nc = Nc;
   a.slope = slope;
+  auto on16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  a.vec_x = C % 4 == 0;
+  a.vec_wa = Na % 4 == 0;
+  for (int i = 0; i < k; ++i) {
+    a.vec_x = a.vec_x && on16(xs[i]);
+    a.vec_wa = a.vec_wa && on16(was[i]);
+  }
+  a.vec_wb = Nb % 4 == 0 && on16(wb);
+  a.vec_h1 = Na % 4 == 0 && on16(h1);
   return launch_f32(a, s);
 }

@@ -38,9 +38,8 @@ from ssdn_tpu_torch.kernels import refuse_graph_cut
 
 SLOPE = 0.1
 MAX_BRANCHES = 4
-# fp32 (FMA) K2 and K3 only: layer-a columns, 2 per thread x 256 threads.
-# bf16 K2 walks Na in chunks and takes any multiple of 8; bf16 K3 keeps
-# this limit.
+# K3 only (both dtypes): layer-a columns, 2 per thread x 256 threads. K2
+# walks Na in chunks and takes any Na (bf16: any multiple of 8).
 MAX_NA = 512
 
 #: CUDA launches since the last reset (set to 0 to reset): K2, the
@@ -88,23 +87,41 @@ _K2_MODEL = (4, 96, 384, 96)  # k, C, Na, Nb
 _MAX_C_K2 = 256              # bf16: input channels
 _MAX_NB_K2 = 128             # bf16: pre2's columns, held in registers
 _NC_K2 = 16                  # bf16: out's columns, padded
-_ROWS_K2_F32 = 32            # fp32 FMA kernel: rows per block
+# fp32 (FMA pipes): 128-row tiles, Na in chunks of 128 columns, layer a's K
+# in slices of 32 channels through a 2-stage ring, pre2 in passes of 96
+# columns (its registers), out in groups of 16 columns; 256 threads, one
+# block per SM. Shared floats: x slices and Wa_i slices (2 stages each),
+# the h1 chunk / h2 ([column][row], rows padded by 4), Wb[chunk, pass],
+# Wc[pass, group].
+_F32_ROWS, _F32_CHUNK, _F32_SLICE, _F32_STAGES = 128, 128, 32, 2
+_F32_PASS, _F32_GROUP, _F32_THREADS = 96, 16, 256
+_F32_LD = _F32_ROWS + 4
+_F32_SMEM = 4 * (_F32_STAGES * _F32_SLICE * (_F32_LD + _F32_CHUNK)
+                 + _F32_CHUNK * _F32_LD + _F32_CHUNK * _F32_PASS
+                 + _F32_PASS * _F32_GROUP)
 
 
 @dataclasses.dataclass(frozen=True)
 class K2Plan:
     """What one K2/K2' launch needs: the instantiation ("fma" for fp32;
     bf16: "fixed" at the model's widths, else "generic"), rows per tile,
-    row tiles, chunks of Na per tile, threads and blocks per SM (bf16: the
-    grid is min(tiles, SMs x blocks per SM), persistent blocks), and the
-    shared bytes per block."""
+    row tiles, Na's columns per chunk and chunks per tile, the weight
+    ring's stages, passes over Nb (fp32: 96 columns of pre2 per pass),
+    threads and blocks per SM (the grid is min(tiles, SMs x blocks per SM),
+    persistent blocks), the shared bytes per block, and the bytes of Wa_i
+    and Wb the blocks stream from L2 per launch (each tile reads them once
+    per pass; Wc, read once per block, aside)."""
     instantiation: str
     rows_per_block: int
     row_tiles: int
+    chunk: int
     chunks: int
+    stages: int
+    passes: int
     threads: int
     blocks_per_sm: int
     smem: int
+    weight_bytes: int
 
 
 def k2_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
@@ -113,9 +130,11 @@ def k2_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
     widths Na, Nb, Nc and x's dtype: the numbers the wrapper checks with,
     and that ``csrc/nin_head.cu`` computes the same way."""
     if dtype != torch.bfloat16:
-        rows = _ROWS_K2_F32
-        return K2Plan("fma", rows, _cdiv(m, rows), 1, 256, 1,
-                      4 * rows * (c + na + nb))
+        rows, passes = _F32_ROWS, _cdiv(nb, _F32_PASS)
+        tiles = _cdiv(m, rows)
+        return K2Plan("fma", rows, tiles, _F32_CHUNK, _cdiv(na, _F32_CHUNK),
+                      _F32_STAGES, passes, _F32_THREADS, 1, _F32_SMEM,
+                      4 * tiles * (passes * k * c * na + na * nb))
     rows, chunk = _K2_ROWS_PER_WARP * _K2_WARPS, _K2_CHUNK
     p16 = lambda v: _cdiv(v, 16) * 16
     cp, nbp = p16(c), p16(nb)
@@ -125,22 +144,20 @@ def k2_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                 + _K2_STAGES * (k * cp * (chunk + _SKEW) + chunk * (nbp + _SKEW))
                 + rows * (max(chunk, nbp) + _SKEW) + nbp * (_NC_K2 + _SKEW))
     inst = "fixed" if (k, c, na, nb) == _K2_MODEL else "generic"
-    return K2Plan(inst, rows, _cdiv(m, rows), _cdiv(na, chunk),
-                  32 * _K2_WARPS, 1, smem)
+    tiles = _cdiv(m, rows)
+    return K2Plan(inst, rows, tiles, chunk, _cdiv(na, chunk), _K2_STAGES, 1,
+                  32 * _K2_WARPS, 1, smem, 2 * tiles * (k * c * na + na * nb))
 
 
 def _check_k2_launch(plan: K2Plan, tensors, c, na, nb, nc, dt) -> None:
     """What K2 takes beyond ``_check``: shared memory within one block's
-    limit; fp32 (FMA): Na <= ``MAX_NA``; bf16 (tensor cores): C, Na, Nb
-    multiples of 8, C <= 256, Nb <= 128, Nc <= 16, and x_i, Wa_i, Wb on
-    16-byte boundaries (their rows move in 16-byte copies)."""
+    limit; fp32 (FMA): any widths, any alignment; bf16 (tensor cores): C,
+    Na, Nb multiples of 8, C <= 256, Nb <= 128, Nc <= 16, and x_i, Wa_i,
+    Wb on 16-byte boundaries (their rows move in 16-byte copies)."""
     if plan.smem > SMEM_LIMIT:
         raise ValueError(f"K2 needs {plan.smem} bytes of shared memory per "
                          f"block, more than {SMEM_LIMIT}")
     if dt != torch.bfloat16:
-        if na > MAX_NA:
-            raise ValueError(f"fp32 K2 supports at most {MAX_NA} layer-a "
-                             f"columns, got {na}")
         return
     if c % 8 or na % 8 or nb % 8:
         raise ValueError(f"bf16 K2 takes C, Na, Nb in multiples of 8, got "

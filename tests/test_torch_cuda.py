@@ -344,6 +344,79 @@ def test_k2_bf16_is_bitwise_repeatable_and_one_kernel(cuda):
     assert torch.equal(a, c)
 
 
+# ------------------- fp32 K2 / K2' on the FMA pipes -------------------
+
+
+def _k2_fp32_matches_twin(args, save_h1):
+    """out within 1e-5 of the twin (fp32, summation order only), h1 at
+    ``TOL32``; the launch is counted on its own counter."""
+    before = (K2.launches, K2.launches_save_h1)
+    out, h1 = K2.nin_head_fwd(*args, save_h1=save_h1)
+    torch.cuda.synchronize()
+    assert (K2.launches, K2.launches_save_h1) == (before[0] + (not save_h1),
+                                                  before[1] + save_h1)
+    ref, ref_h1 = K2.torch_reference_fwd(*args)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    if not save_h1:
+        assert h1 is None
+        return
+    assert h1.dtype == torch.float32 and h1.shape == ref_h1.shape
+    torch.testing.assert_close(h1, ref_h1, **TOL32)
+
+
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 4133])
+def test_k2_fp32_ragged_rows_match_twin(cuda, m, save_h1):
+    """The FMA kernel at ragged M: a 128-row tile part-filled, the rest
+    zero and masked."""
+    _k2_fp32_matches_twin(_k2_operands(m + 5, m, 4, 10, torch.float32),
+                          save_h1)
+
+
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("widths", list(K2_NARROW.values()), ids=list(K2_NARROW))
+def test_k2_fp32_narrow_widths_match_twin(cuda, widths, save_h1):
+    """A part-filled chunk of Na, slice of C and pass of Nb: the pads are
+    zero in shared memory and masked on store."""
+    w = dict(widths)
+    n_out = w.pop("n_out")
+    _k2_fp32_matches_twin(_k2_operands(7, 1000, 4, n_out, torch.float32,
+                                       **w), save_h1)
+
+
+# C 3 and 99: x rows off 16-byte boundaries (4-byte pieces); Na MAX_NA and
+# past it (fp32 K2 walks Na in chunks of 128: 520 ends in a part-filled
+# chunk of a width not a multiple of 4); Nb 200 and Nc 40: three passes
+# over Nb (out's partial sum carried in out) and three groups of 16 columns
+K2_FP32_WIDE = {"c3": dict(c=3), "c99": dict(c=99),
+                "na512": dict(na=K2.MAX_NA), "na520": dict(na=K2.MAX_NA + 8),
+                "nb200-nc40": dict(nb=200, n_out=40)}
+
+
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("widths", list(K2_FP32_WIDE.values()),
+                         ids=list(K2_FP32_WIDE))
+def test_k2_fp32_odd_widths_match_twin(cuda, widths, save_h1):
+    w = dict(widths)
+    n_out = w.pop("n_out", 10)
+    _k2_fp32_matches_twin(_k2_operands(11, 1000, 4, n_out, torch.float32,
+                                       **w), save_h1)
+
+
+def test_k2_fp32_is_bitwise_repeatable_and_one_kernel(cuda):
+    """At M = 262,144 (2,048 tiles over persistent blocks) two launches of
+    fp32 K2 give the same bits, two of K2' too, and K2 and K2' (one kernel,
+    h1 stores aside) give the same `out` bits."""
+    args = _k2_operands(17, 262_144, 4, 10, torch.float32)
+    a, b = K2.fused_nin_head(*args), K2.fused_nin_head(*args)
+    (c, h1c), (d, h1d) = (K2.nin_head_fwd(*args, save_h1=True),
+                          K2.nin_head_fwd(*args, save_h1=True))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(h1c, h1d)
+    assert torch.equal(a, c)
+
+
 def _k3_operands(seed, m, k, n_out, dtype, **widths):
     args = _k2_operands(seed, m, k, n_out, dtype, **widths)
     xs, was, ba, wb, bb, wc, bc = args

@@ -2,7 +2,8 @@
 (``kernels.nin_head.k2_plan``) and the checks the wrapper runs before a
 launch, the numbers that ``csrc/nin_head.cu`` computes the same way; the
 twin against the JAX package's ``_fwd_call`` in interpret mode at widths
-the bf16 tensor-core kernel pads; the probe's textual edits of the
+the bf16 tensor-core kernel pads and at channel counts the fp32 FMA
+kernel moves in 4-byte pieces; the probe's textual edits of the
 source; and the kernel build's cache key, which must change with any
 header the sources include. The kernels themselves
 run on the card (``tests/test_torch_cuda.py``)."""
@@ -33,8 +34,12 @@ def test_shared_memory_fits_one_block(dtype, na):
     plan = _plan(1_572_864, dtype, **dict(MODEL, na=na))
     assert plan.smem <= K2.SMEM_LIMIT
     if dtype == F32:
+        # floats: x slices 2 x 32 x (128 + 4), Wa_i slices 2 x 32 x 128, the
+        # h1 chunk / h2 128 x (128 + 4), Wb chunk 128 x 96, Wc 96 x 16;
+        # walking Na in chunks, it does not grow with Na
         assert plan.instantiation == "fma"
-        assert plan.smem == 4 * 32 * (96 + na + 96)  # x, h1, h2 tiles, fp32
+        assert plan.smem == 4 * (2 * 32 * 132 + 2 * 32 * 128 + 128 * 132
+                                 + 128 * 96 + 96 * 16)
     elif na == 384:
         # x tiles 4 x 128 x (96 + 8), ring 2 x (Wa_i chunks 4 x 96 x (32 + 8)
         # | Wb chunk 32 x (96 + 8)), h1 chunk / h2 rows 128 x (96 + 8), Wc
@@ -58,7 +63,8 @@ def test_bf16_plan_fits_one_block_per_sm():
 def test_row_tiles_at_ragged_m(m):
     bf = _plan(m, BF16, **MODEL)
     assert bf.rows_per_block == 128 and bf.row_tiles == -(-m // 128)
-    assert _plan(m, F32, **MODEL).row_tiles == -(-m // 32)
+    f32 = _plan(m, F32, **MODEL)
+    assert f32.rows_per_block == 128 and f32.row_tiles == -(-m // 128)
 
 
 @pytest.mark.parametrize("widths", list(NARROW.values()), ids=list(NARROW))
@@ -93,10 +99,67 @@ def test_launch_checks():
         check(dict(narrow, nb=136))
     with pytest.raises(ValueError, match="16-byte"):
         check(narrow, (t[1:],))
-    with pytest.raises(ValueError, match="layer-a columns"):
-        check(dict(MODEL, na=K2.MAX_NA + 8), (t.float(),), F32)
+    # fp32 walks Na in chunks too: MAX_NA binds K3 only
+    check(dict(MODEL, na=K2.MAX_NA + 8), (t.float(),), F32)
     with pytest.raises(ValueError, match="shared memory"):
         check(dict(MODEL, c=128))  # four 128-channel x tiles and the ring
+
+
+# ------------------- the fp32 FMA kernel's plan -------------------
+
+FP32_WIDTHS = {"model": MODEL, "max-na": dict(MODEL, na=K2.MAX_NA), **NARROW}
+
+
+@pytest.mark.parametrize("widths", list(FP32_WIDTHS.values()),
+                         ids=list(FP32_WIDTHS))
+def test_fp32_plan_chunks_and_stages(widths):
+    """128-row tiles, Na in chunks of 128 columns (a part-filled last
+    chunk at 72 and 32), a 2-stage ring, one pass over Nb <= 96."""
+    plan = _plan(4133, F32, **widths)
+    assert (plan.instantiation, plan.rows_per_block, plan.row_tiles) == (
+        "fma", 128, 33)
+    assert plan.chunk == 128 and plan.chunks == -(-widths["na"] // 128)
+    assert plan.stages == 2 and plan.passes == 1
+    assert plan.smem == _plan(1, F32, **MODEL).smem  # fixed geometry
+
+
+def test_fp32_plan_fits_one_block_per_sm():
+    plan = _plan(1_572_864, F32, **MODEL)
+    # the H100 SM's 228 KB of shared memory, 1 KB reserved per block
+    assert plan.smem <= K2.SMEM_LIMIT
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= 228 * 1024
+    assert plan.threads == 256 and plan.blocks_per_sm == 1
+
+
+@pytest.mark.parametrize("m,tiles,gb", [(1_572_864, 12_288, 9.06),
+                                        (393_216, 3_072, 2.26)])
+def test_fp32_weight_stream_per_launch(m, tiles, gb):
+    """Each 128-row tile streams Wa_i and Wb from L2 once (737,280 bytes at
+    the model's widths): 9.06 GB per batch-384 step and 2.26 per 768x512
+    request, where 32-row tiles took four times as much (36.24 GB per
+    step)."""
+    plan = _plan(m, F32, **MODEL)
+    per_tile = 4 * (4 * 96 * 384 + 384 * 96)
+    assert per_tile == 737_280 and plan.row_tiles == tiles
+    assert plan.weight_bytes == tiles * per_tile
+    assert round(plan.weight_bytes / 1e9, 2) == gb
+    assert plan.weight_bytes * 4 == -(-m // 32) * per_tile  # 32-row tiles
+
+
+@pytest.mark.parametrize("widths", [
+    dict(MODEL, c=3), dict(MODEL, c=99), dict(MODEL, na=K2.MAX_NA + 8),
+    dict(MODEL, na=1024), dict(MODEL, nb=200, nc=40), dict(MODEL, nc=17),
+    dict(NARROW["c40-na72-nb24-nc3"], k=1)],
+    ids=["c3", "c99", "na520", "na1024", "nb200-nc40", "nc17", "narrow-k1"])
+def test_fp32_takes_every_width(widths):
+    """No width is refused in fp32 (the shared bytes are fixed): C not a
+    multiple of 4 moves in 4-byte pieces, Na in chunks, Nb over 96 in
+    passes, Nc over 16 in groups; unaligned operands too."""
+    plan = _plan(1000, F32, **widths)
+    assert plan.passes == -(-widths["nb"] // 96)
+    off = torch.zeros(17)[1:]  # 4 bytes past an allocation's start
+    K2._check_k2_launch(plan, (off,), widths["c"], widths["na"],
+                        widths["nb"], widths["nc"], F32)
 
 
 # ------------------- the twin against the TPU kernel -------------------
@@ -159,16 +222,45 @@ def test_twin_matches_pallas_at_narrow_widths(nh_interpret, widths, save_h1,
                                atol=bar(ref_h1))
 
 
+@pytest.mark.parametrize("save_h1", [False, True])
+@pytest.mark.parametrize("c", [3, 99])
+def test_twin_matches_pallas_fp32_at_unaligned_channels(nh_interpret, c,
+                                                        save_h1):
+    """The fp32 twin against ``_fwd_call`` in interpret mode at C 3 and 99,
+    whose x rows the fp32 kernel moves in 4-byte pieces (the card tests
+    hold the kernel against this twin there): out and h1 at 1e-5 of their
+    range (summation order only)."""
+    xs, was, ba, wb, bb, wc, bc = _inputs(c, 2, c=c, na=72, nb=24, nc=3)
+    j = lambda a: jnp.asarray(a)
+    out, h1 = NH._fwd_call([j(x) for x in xs], [j(w) for w in was],
+                           j(ba)[None], j(wb), j(bb)[None], j(wc), j(bc)[None],
+                           tm=256, interpret=True, save_h1=save_h1)
+    tt = lambda a: torch.from_numpy(np.array(a, np.float32))
+    got, got_h1 = K2.nin_head_fwd([tt(x) for x in xs], [tt(w) for w in was],
+                                  tt(ba), tt(wb), tt(bb), tt(wc), tt(bc),
+                                  save_h1=save_h1)
+    for g, r in ((got, out), (got_h1, h1)) if save_h1 else ((got, out),):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-5 * float(np.abs(r).max()))
+    assert (got_h1 is None) == (not save_h1)
+
+
 # ------------------- the probe's edits of the source -------------------
 
 
-@pytest.mark.parametrize("name", [*k2_probe.VARIANTS, *k2_probe.ABLATIONS])
+PROBE_EDITS = {**k2_probe.VARIANTS, **k2_probe.ABLATIONS,
+               **{f"f32_{n}": e for n, e in {**k2_probe.F32_VARIANTS,
+                                             **k2_probe.F32_ABLATIONS}.items()}}
+
+
+@pytest.mark.parametrize("name", list(PROBE_EDITS))
 def test_probe_edits_match_the_source(name):
-    """``k2_probe.py`` times the design's variants and ablations as textual
-    edits of ``csrc/nin_head.cu``: each edit's text must occur in the
-    committed source exactly once, or the probe would time a copy that
-    differs from what it names."""
-    edits = {**k2_probe.VARIANTS, **k2_probe.ABLATIONS}[name]
+    """``k2_probe.py`` times the design's variants and ablations (bf16 and
+    fp32) as textual edits of ``csrc/nin_head.cu``: each edit's text must
+    occur in the committed source exactly once, or the probe would time a
+    copy that differs from what it names."""
+    edits = PROBE_EDITS[name]
     with open(k2_probe.SOURCE) as f:
         src = f.read()
     for old, new in edits:
