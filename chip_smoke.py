@@ -16,10 +16,11 @@ which fails the run (non-zero exit) on any error:
    M = 393,216), K2' and K3 on the operands of a real batch-384 training
    step (M = 1,572,864, k 4; K2' and K3 launched twice and compared bit
    for bit, K2' against K2's out bits), K1 at the training shapes, and
-   random ragged shapes and narrow widths (K2 / K2' in both dtypes at M 1
-   to 4,133 and C/Na/Nb 40/72/24 and 16/32/16, fp32 also at Na 512, C 3
-   and 99 and Nb 200 / Nc 40; bf16 K1 at Cin 1, 3, 97, 99, 144, W 2, 4, 7
-   and BSD68's 512x352, each launched twice and compared bit for bit);
+   random ragged shapes and narrow widths (K2 / K2' and K3 in both dtypes
+   at M 1 to 4,133 and C/Na/Nb 40/72/24, K2 / K2' also 16/32/16, fp32 K2 /
+   K2' and K3 also at Na 512, C 3 and 99, Nb 200 / Nc 40 and K3 at 16/32/16;
+   bf16 K1 at Cin 1, 3, 97, 99, 144, W 2, 4, 7 and BSD68's 512x352; K3 and
+   bf16 K1 each launched twice and compared bit for bit);
    then times K2', K3 and K1 (bf16 and fp32, from each model's step)
    per training step against their bounds, twins and library yardsticks;
 4. the serving path: two bundled pretrained models (``gauss25_rgb`` in
@@ -37,7 +38,9 @@ which fails the run (non-zero exit) on any error:
    against the port's CPU step (32x32); then 30 steps of the bf16 model
    in each arm through ``make_train_step`` (uint8 batch, noise on the
    card, forward, backward, Adam): finite, the loss falls, and K1 / K2' /
-   K3 launch 12 / 1 / 1 times per step in their arms;
+   K3 launch 12 / 1 / 1 times per step in their arms; then the reference
+   objective's fp32 training step (``gauss25_rgb``, batch 384) timed over
+   10 steps in the lax and head arms (K2' / K3 fp32 once per step);
 6. times each arm per 768x512 request and per training step (patches/s),
    profiles one request and one step per arm (device busy and idle share),
    and each kernel per request against its bound, its twin and a library
@@ -76,6 +79,10 @@ TRAIN_BATCH = 384    # the flagship training batch (bench.py's headline)
 PATCH = 64           # training patch side
 TRAIN_STEPS = 30     # steps per arm on the training path
 TRAIN_WARM = 5       # steps before the patches/s clock starts
+# the reference objective's fp32 training step (gauss25_rgb): timed steps
+# after warm-ups, per arm
+REF_ARMS = ("lax", "head_pallas")
+REF_STEPS, REF_WARM = 10, 3
 
 
 class SmokeFailure(Exception):
@@ -846,10 +853,23 @@ K3_BF16_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 4133)] + [
     (4133, 4, 3, dict(c=40, na=72, nb=24)), (1000, 1, 3, dict(c=40, na=72, nb=24))]
 
 
+# fp32 K3's extra cases (M, k, Nc, widths): ragged row counts for the FMA
+# kernels' 128-row tiles, C 3 and 99 (rows off 16-byte boundaries: 4-byte
+# pieces; dx chunks straddling branches), Na at MAX_NA, Nb 200 / Nc 40
+# (three passes over Nb, three groups of Nc), the narrow widths, and C, Na,
+# Nb not multiples of 4 (every operand in 4-byte pieces)
+K3_FP32_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 127, 129, 4133)] + [
+    (1000, 4, 10, dict(c=3)), (1000, 4, 10, dict(c=99)),
+    (1000, 4, 10, dict(na=512)), (1000, 4, 40, dict(nb=200)),
+    (1000, 4, 3, dict(c=40, na=72, nb=24)), (1000, 4, 9, dict(c=16, na=32, nb=16)),
+    (1000, 4, 3, dict(c=5, na=70, nb=30))]
+
+
 def training_kernels_vs_twins(torch, calls, report):
     """K2' (out and h1) and K3 (every output, launched twice and compared
     bit for bit) against their twins on the captured batch-384 operands
-    and on random ragged ones; K1 at the training shapes."""
+    and on random ragged ones and odd widths (K3: ``K3_BF16_CASES``,
+    ``K3_FP32_CASES``); K1 at the training shapes."""
     from ssdn_tpu_torch.kernels import nin_head as K2
     from ssdn_tpu_torch.kernels import shifted_conv as K1
 
@@ -923,6 +943,7 @@ def _training_kernels_vs_twins(torch, K1, K2, calls, report):
         k2p_row("random", (xs, was, *rest), _head_shape(m, k, nc, widths))
     n_k2p = len(cases)  # K2''s own bf16 cases ran above
     cases += [(torch.bfloat16, *case) for case in K3_BF16_CASES]
+    cases += [(torch.float32, *case) for case in K3_FP32_CASES]
     for i, (dt, m, k, nc, widths) in enumerate(cases):
         xs, was, rest = random_head(torch, g, m, k, nc, dt, **widths)
         shape = _head_shape(m, k, nc, widths)
@@ -1112,6 +1133,26 @@ def train_gpu_vs_cpu(torch, report):
               for d in diffs.values()), f"card and CPU disagree: {diffs}")
 
 
+def timed_steps(torch, ts, state, batch, warm, steps):
+    """warm + steps training steps from ``state``: (state, the losses, the
+    seconds of the last ``steps``, host clock to a synchronize)."""
+    losses = []
+    for i in range(warm + steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, m = ts(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return state, [float(v) for v in losses], time.perf_counter() - t0
+
+
+def all_finite(torch, losses, state):
+    return all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(t).all()) for leaf in state.params.values()
+        for t in leaf.values())
+
+
 def train(torch, models, report):
     """The training main path: TRAIN_STEPS steps of the bf16 blind model
     in each arm at batch 384 through ``make_train_step`` (uint8 batch,
@@ -1130,26 +1171,16 @@ def train(torch, models, report):
         ts = make_train_step(train_cfg(cfg, arm), device=DEVICE)
         state = state_from_params(params)
         before = read_counts()
-        losses = []
         torch.cuda.reset_peak_memory_stats()
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_WARM:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            state, m = ts(state, batch)
-            losses.append(m["loss"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        steps = TRAIN_STEPS - TRAIN_WARM
+        state, losses, dt = timed_steps(torch, ts, state, batch, TRAIN_WARM,
+                                        steps)
         after = read_counts()
         per_arm[arm] = {k: after[k] - before[k] for k in after}
-        losses = [float(v) for v in losses]
-        finite = all(np.isfinite(losses)) and all(
-            bool(torch.isfinite(t).all()) for leaf in state.params.values()
-            for t in leaf.values())
         first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        steps = TRAIN_STEPS - TRAIN_WARM
         rows.append(dict(arm=arm, losses=losses, first5=first, last5=last,
-                         finite=finite, ms_per_step=dt / steps * 1e3,
+                         finite=all_finite(torch, losses, state),
+                         ms_per_step=dt / steps * 1e3,
                          patches_per_s=steps * TRAIN_BATCH / dt,
                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
     launches = read_counts()
@@ -1174,6 +1205,50 @@ def train(torch, models, report):
         check(r["last5"] < r["first5"], f"{r['arm']}: the loss did not fall "
               f"({r['first5']:.5f} -> {r['last5']:.5f})")
     return launches, rows
+
+
+def train_reference_fp32(torch, models, report):
+    """The reference objective's fp32 training step, timed: the
+    ``gauss25_rgb`` weights (trained under ``objective="reference"``, whose
+    "auto" compute dtype is float32) at batch 384 through
+    ``make_train_step``, REF_WARM warm-ups then REF_STEPS steps in the lax
+    and head arms (the head arm runs K2' and K3 in fp32 once per step).
+    Counts are read just around each arm; the loss and the weights must
+    stay finite."""
+    from ssdn_tpu_torch.train import make_train_step, state_from_params
+
+    cfg, params = models["gauss25_rgb"]
+    check(cfg.objective == "reference" and
+          cfg.model.compute_dtype == "float32",
+          f"gauss25_rgb: {cfg.objective} / {cfg.model.compute_dtype}")
+    batch = train_batch_u8()
+    rows, launches = [], {}
+    for arm in REF_ARMS:
+        ts = make_train_step(train_cfg(cfg, arm), device=DEVICE)
+        state = state_from_params(params)
+        reset_counts()
+        state, losses, dt = timed_steps(torch, ts, state, batch, REF_WARM,
+                                        REF_STEPS)
+        launches[arm] = read_counts()
+        rows.append(dict(arm=arm, ms_per_step=dt / REF_STEPS * 1e3,
+                         patches_per_s=REF_STEPS * TRAIN_BATCH / dt,
+                         first_loss=losses[0], last_loss=losses[-1],
+                         finite=all_finite(torch, losses, state)))
+    report["reference_training"] = rows
+    report["reference_train_launches"] = launches
+    print("  reference objective, fp32 gauss25_rgb, batch "
+          f"{TRAIN_BATCH}, {REF_STEPS} steps after {REF_WARM}: " + "; ".join(
+              f"{r['arm']} {r['ms_per_step']:.2f} ms/step "
+              f"{r['patches_per_s']:.1f} patches/s" for r in rows))
+    n = REF_WARM + REF_STEPS
+    want = {"lax": dict(k1=0, k2=0, k2_save_h1=0, k3=0),
+            "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n)}
+    for arm, counts in launches.items():
+        check(counts == want[arm], f"reference {arm}: launches {counts}, "
+                                   f"expected {want[arm]}")
+    for r in rows:
+        check(r["finite"], f"reference {r['arm']}: non-finite loss or params")
+    return rows
 
 
 def profile_train_step(torch, models, report):
@@ -1212,14 +1287,33 @@ def k3_cost(torch, xs, was, h1, wb, wc):
     return bound(nbytes, ops, dname(torch, xs[0].dtype))
 
 
-# K3's three kernels by name prefix (the fp32 and the bf16 instantiation)
-K3_PARTS = {"rows": "bwd_rows", "wgrad": "wgrad_", "reduce": "reduce_splits"}
+def k3_library(torch, args):
+    """K3's library yardstick on K3's operands: a function that runs the
+    autograd backward of the torch-ops head (``head_library``; its forward
+    built once, here, outside any timing; ba and bc, which K3 does not
+    read, are zeros). Timed only, never used by the port."""
+    xs, was, h1, wb, bb, wc, g = args
+    ba0 = torch.zeros(h1.shape[1], device=h1.device)
+    bc0 = torch.zeros(g.shape[1], device=g.device)
+    leaves = [t.detach().requires_grad_(True)
+              for t in (*xs, *was, ba0, wb, bb, wc, bc0)]
+    k = len(xs)
+    with torch.enable_grad():
+        out = head_library(leaves[:k], leaves[k:2 * k], *leaves[2 * k:])
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+# K3's kernels by name prefix: (a) the rows kernel (fp32: (a1), pre2 to
+# dpre1; bf16: the whole of (a)), fp32's (a2) dx kernel, (b) the
+# weight-grad partials, (c) the split reduction
+K3_PARTS = {"rows": "bwd_rows", "dx": "bwd_dx", "wgrad": "wgrad_",
+            "reduce": "reduce_splits"}
 
 
 def k3_parts(torch, fn, reps):
-    """K3's device ms per call, split into (a) the row kernel, (b) the
-    weight-grad partials and (c) the split reduction: torch.profiler's
-    device events over reps calls of fn (warmed)."""
+    """K3's device ms per call, split into its launches (``K3_PARTS``; bf16
+    has no dx launch): torch.profiler's device events over reps calls of fn
+    (warmed)."""
     fn()
     _, top = device_profile(torch, lambda: [fn() for _ in range(reps)])
     return {part: sum(ms for name, ms, _ in top if prefix in name) / reps
@@ -1252,19 +1346,7 @@ def time_training_kernels(torch, calls, report, reps=5):
                 h1, wb, bb, wc, g = args[2:]
                 ms = cuda_ms(torch, lambda: K2.nin_head_bwd(*args), reps)
                 plain = cuda_ms(torch, lambda: K2.torch_reference_bwd(*args), reps)
-                # the library backward: autograd of the torch-ops head on the
-                # same operands (forward built once, outside the timing; ba
-                # and bc, which K3 does not read, are zeros)
-                ba0 = torch.zeros(h1.shape[1], device=h1.device)
-                bc0 = torch.zeros(g.shape[1], device=g.device)
-                leaves = [t.detach().requires_grad_(True)
-                          for t in (*xs, *was, ba0, wb, bb, wc, bc0)]
-                k = len(xs)
-                out = head_library(leaves[:k], leaves[k:2 * k],
-                                   *leaves[2 * k:])
-                lib = cuda_ms(torch, lambda: torch.autograd.grad(
-                    out, leaves, g, retain_graph=True), reps)
-                del out, leaves
+                lib = cuda_ms(torch, k3_library(torch, args), reps)
                 b_ms, by = k3_cost(torch, xs, was, h1, wb, wc)
             tot = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                        bound_by=by, dtype=dname(torch, xs[0].dtype),
@@ -1311,9 +1393,12 @@ def training_line(report, timing, launches):
         key = {"k2p": "k2_save_h1", "k3": "k3"}[kind]
         line[-1]["per_train_step_fp32"] = dict(
             {f: v32[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                 "bound_by")}, model=m32,
+                                 "bound_by", "parts_ms") if f in v32},
+            model=m32,
             launches=report["train_agreement_launches"][
-                f"{m32}/zoo/head_pallas"][key])
+                f"{m32}/zoo/head_pallas"][key],
+            launches_reference_training=report["reference_train_launches"][
+                "head_pallas"][key])
     return line
 
 
@@ -1372,6 +1457,7 @@ def main(argv=None) -> int:
     train_launches, _ = train(torch, models, report)
     check(all(train_launches[k] > 0 for k in ("k1", "k2_save_h1", "k3")),
           f"a kernel was not launched on the training path: {train_launches}")
+    train_reference_fp32(torch, models, report)
 
     print("[6] timing")
     time_requests(torch, models, report)

@@ -102,36 +102,38 @@ F32_ABLATIONS = {
 }
 
 
-def edited_source(edits):
-    """csrc/nin_head.cu with each (old, new) applied; old must occur once."""
-    with open(SOURCE) as f:
+def edited_source(edits, source=SOURCE):
+    """The source (csrc/nin_head.cu) with each (old, new) applied; old must
+    occur once."""
+    with open(source) as f:
         s = f.read()
     for old, new in edits:
         if s.count(old) != 1:
-            raise RuntimeError(f"csrc/nin_head.cu holds {old!r} "
+            raise RuntimeError(f"{os.path.basename(source)} holds {old!r} "
                                f"{s.count(old)} times, not once")
         s = s.replace(old, new)
     return s
 
 
-def build_copies(copies, against=None):
+def build_copies(copies, against=None, source=SOURCE):
     """({name: library}, {name: build log}) for edited copies of the source
-    ({name: edits}) and, as "other", ``against``'s ``csrc/nin_head.cu``; one
-    nvcc each, all at once."""
-    out = os.path.join(_build.BUILD_DIR, "k2_probe")
+    (csrc/nin_head.cu; {name: edits}) and, as "other", ``against``'s copy
+    of the same file; one nvcc each, all at once."""
+    stem = os.path.splitext(os.path.basename(source))[0]
+    out = os.path.join(_build.BUILD_DIR, "probe")
     os.makedirs(out, exist_ok=True)
     jobs = {}  # name: (source, include directory)
     for name, edits in copies.items():
-        path = os.path.join(out, f"nin_head_{name}.cu")
+        path = os.path.join(out, f"{stem}_{name}.cu")
         with open(path, "w") as f:
-            f.write(edited_source(edits))
+            f.write(edited_source(edits, source))
         jobs[name] = (path, _build.CSRC)
     if against:
         csrc = os.path.join(against, "ssdn_tpu_torch", "csrc")
-        jobs["other"] = (os.path.join(csrc, "nin_head.cu"), csrc)
+        jobs["other"] = (os.path.join(csrc, os.path.basename(source)), csrc)
     procs = {}
     for name, (path, inc) in jobs.items():
-        so = os.path.join(out, f"nin_head_{name}.so")
+        so = os.path.join(out, f"{stem}_{name}.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", inc, "-o", so, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT), so)
@@ -145,12 +147,12 @@ def build_copies(copies, against=None):
     return libs, logs
 
 
-def fma_registers(log):
-    """ptxas's registers and spill line for the fp32 kernel in a build log
+def fma_registers(log, kernel="head_fwd_fma_kernel"):
+    """ptxas's registers and spill line for an fp32 kernel in a build log
     (``-Xptxas=-v``)."""
     lines = log.splitlines()
     at = next(i for i, line in enumerate(lines)
-              if "Function properties" in line and "head_fwd_fma_kernel" in line)
+              if "Function properties" in line and kernel in line)
     return f"{lines[at + 2].split(': ')[-1]}; {lines[at + 1].strip()}"
 
 

@@ -20,11 +20,11 @@
 // What changes from the TPU: its grid runs in order, and the weight grads
 // accumulate in VMEM across it. CUDA blocks run concurrently, and dWa alone
 // (4 x 96 x 384 fp32, 590 KB) does not fit one block's shared memory. So
-// three kernels, launched back to back on the caller's stream:
+// the launches below run back to back on the caller's stream:
 //
 //  (a) rows: recomputes pre2 and h2 from the h1 tile, forms dpre2 and
 //      dpre1, writes dx_i, and writes h2, dpre2 and dpre1 (in T) to a
-//      workspace for the weight grads.
+//      workspace for the weight grads (fp32: two launches, (a1) and (a2)).
 //  (b) weight-grad partials: every weight grad is A^T B over the M rows.
 //      Each block owns one output tile of one product and one of S fixed
 //      row ranges (splits) and writes fp32 partial sums [S][...]. The bias
@@ -65,11 +65,46 @@
 //    fp32 g's column sums, has a block of its own per split.
 //    Widths that are not multiples of 16, and ragged rows, are zero in
 //    shared memory and masked on store.
-//  - fp32, the parity path, on the FMA pipes (TF32 would break the port's
-//    fp32 bars): (a) one block per 32 rows, reading transposed copies of
-//    Wa_i and Wb (made by the caller) along its warps; (b) 64 x 64 tiles,
-//    4 x 4 outputs per thread, the bias grads as a row of ones appended
-//    to A.
+//  - fp32, the parity path and the reference objective's training path,
+//    on the FMA pipes (TF32 would break the port's fp32 bars). (a) is
+//    0.70 TFLOP per batch-384 step, 10.4 ms at 67 TFLOP/s, against about
+//    13 GB of rows in and out (4.0 ms): operations bound it. It follows
+//    K2 fp32's design (nin_head.cu) run in reverse, in two launches cut at
+//    dpre1, which the workspace holds for (b) anyway: dx's N is k C (384),
+//    and its 128 x 384 accumulator fits neither the registers nor, beside
+//    a ring, shared memory. Both launches: persistent blocks (one per SM,
+//    256 threads) over 128-row tiles; K in slices of 32 through a ring of
+//    shared memory, the weight slice by cp.async; register micro-tiles (8 x
+//    8, or 8 x 6 on 96 columns) fed by LDS.128, no FMA reading global
+//    memory.
+//      (a1) bwd_rows_fma_kernel, per tile and pass of 96 columns of Nb:
+//           pre2 = h1 Wb[:, pass] (8 x 6), h1's slice by cp.async as it
+//           lies ([row][k]) through a 3-stage ring, its signs kept as bits
+//           for dpre1's mask; dh2 = g Wc^T over Nc in groups of 16 (g's
+//           tile and Wc^T in shared memory); h2 and dpre2 to the workspace
+//           and dpre2 to shared memory ([j][row]); then per chunk of 128
+//           columns of Na, dh1 = dpre2 Wb^T[pass, chunk] (8 x 8, Wb^T's rows
+//           through the ring), masked by h1's signs into dpre1 on the last
+//           pass. A pass after the first continues dh1's sum from the
+//           workspace.
+//      (a2) bwd_dx_fma_kernel: dx_cat = dpre1 [Wa_0^T | .. | Wa_{k-1}^T],
+//           (M x Na)(Na x k C), in chunks of 128 columns of k C that may
+//           straddle branches (a column's branch is three compares): the k
+//           branches share dpre1 as A, so each chunk is one 8 x 8 product,
+//           re-staging the tile's dpre1 (an L2 hit after the first chunk)
+//           through registers into [k][row] slices of a 2-stage ring; the
+//           epilogue masks by x_i's sign. One branch per chunk (96 columns,
+//           8 x 6) ran 2-3% slower.
+//    The weights cross L2 once per 128 rows (10.9 GB per step, from 43.5
+//    for 32-row blocks). Widths are run-time and none is refused (Na <=
+//    512, as the caller's MAX_NA): ragged M, C, Na, Nb and Nc are zero in
+//    shared memory and masked on store; rows off 16-byte boundaries move in
+//    4-byte pieces. Every sum runs in the first fp32 kernel's order (pre2
+//    over Na, dh2 over Nc, dh1 over Nb, dx over Na, each one ascending fmaf
+//    chain), so the bits match it. The rings' depths, the A layouts and the
+//    unrolls were settled on the H100 by k3_probe.py (PERF.md section 6).
+//    (b) 64 x 64 tiles, 4 x 4 outputs per thread, the bias grads as a row
+//    of ones appended to A.
 //
 // Left for later: wgmma and TMA, fusing (b) into (a) and dropping the
 // workspace.
@@ -77,17 +112,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
 #include "tc_bf16.cuh"
 
 using namespace ssdn_tc;
 
 namespace {
 
-constexpr int TM = 32;        // rows per block in (a)
-constexpr int LD = TM + 4;    // shared tile stride: keeps float4 alignment
 constexpr int THREADS = 256;
-constexpr int QA = 2;         // layer-a columns per thread: Na <= QA*THREADS
 constexpr int MAX_BRANCHES = 4;
+constexpr int MAX_DEVICES = 64;
 
 constexpr int WT = 64;        // (b): output tile WT x WT
 constexpr int WR = 32;        // (b): rows staged per step
@@ -112,180 +148,646 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : slope * v;
 }
 
-// ------------------------------ (a) rows ------------------------------
+// --------------------------- fp32 (a) on the FMA pipes ---------------------------
 
-struct RowArgs {
-  const void* x[MAX_BRANCHES];
-  const void* wat[MAX_BRANCHES];  // Wa_i^T, (Na, C)
-  const void* h1;
-  const void* wb;
-  const void* wbt;  // Wb^T, (Nb, Na)
+// Geometry (kernels/nin_head.py's k3_plan has the same numbers): R_TM rows
+// per tile, K in slices of R_KS through a ring of R_STAGES (a1) or
+// DX_STAGES (a2), R_THREADS threads, one block per SM. (a1): pre2 in passes
+// of R_NBP columns of Nb, dh2's K (Nc) in groups of R_NCG, dh1 in chunks of
+// R_NCH columns of Na. (a2): dx in chunks of DX_NCH columns of k C.
+constexpr int R_TM = 128;
+constexpr int R_KS = 32;
+constexpr int R_STAGES = 3;
+constexpr int DX_STAGES = 2;
+constexpr int R_NBP = 96;
+constexpr int R_NCG = 16;
+constexpr int R_NCH = 128;
+constexpr int DX_NCH = 128;
+constexpr int R_THREADS = 256;
+// the FMA loops' K unrolled by (a1), in both of its products, and (a2)
+constexpr int ROWS_UNROLL = 8;
+constexpr int DX_UNROLL = 32;
+constexpr int R_MAX_KS = 16;  // pre2's slices: Na <= 512 (MAX_NA)
+// Strides, in floats: [row][k] slices (rows of the row-major operands as
+// they are, by cp.async: a warp's 4 rows fall in distinct banks) and [k][row]
+// tiles and slices (a warp's column stores hit 32 banks)
+constexpr int R_LDA = R_KS + 4;
+constexpr int R_LDG = R_NCG + 4;
+constexpr int R_LDT = R_TM + 4;
+constexpr int R_AS = R_TM * R_LDA;  // floats in an (a1) stage's A slice
+constexpr int DX_AS = R_KS * R_LDT;  // floats in an (a2) stage's A slice
+constexpr int R_BS = R_KS * R_NCH;  // floats in a stage's B slice (the widest)
+static_assert(DX_NCH <= R_NCH && R_NBP <= R_NCH, "a B slice outgrows its stage");
+// Shared memory, in floats. (a2): the ring (A: dpre1 slices, [k][row]; B:
+// Wa^T slices). (a1): the ring (A: h1 slices, [row][k]; B: Wb or Wb^T
+// slices), the pass's dpre2 (R_NBP x R_LDT, [j][row]), g's group (two
+// buffers, [row][n]), Wc^T's group ([n][j]), and h1's signs for dpre1's mask
+// (bits, two buffers of R_TM rows x R_MAX_KS slices, a word each).
+constexpr int DX_SMEM = 4 * DX_STAGES * (DX_AS + R_BS);  // bytes
+constexpr int RW_OFF_B = R_STAGES * R_AS;
+constexpr int RW_OFF_D = RW_OFF_B + R_STAGES * R_BS;
+constexpr int RW_OFF_G = RW_OFF_D + R_NBP * R_LDT;
+constexpr int RW_OFF_C = RW_OFF_G + 2 * R_TM * R_LDG;
+constexpr int RW_OFF_M = RW_OFF_C + R_NCG * R_NBP;
+constexpr int RW_MASK = R_TM * R_MAX_KS;  // words in a buffer of signs
+constexpr int RW_SMEM = 4 * (RW_OFF_M + 2 * RW_MASK);  // bytes
+
+// dst <- 16 (4) bytes at src, or zeros where `in` is false (nothing read)
+__device__ __forceinline__ void cp_async16_or_zero(float* dst, const float* src,
+                                                   bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4_or_zero(float* dst, const float* src,
+                                                  bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+// An A slice by cp.async: rows r0.. (R_TM) and columns k0.. (R_KS) of a
+// row-major (M x K) matrix into a stage's [row][k] slice (eight threads per
+// row, 128 contiguous bytes); zero past M and K. vec: 16-byte pieces.
+__device__ __forceinline__ void stage_a(float* dst, const float* m, int M,
+                                        int K, long long r0, int k0, bool vec) {
+  constexpr int Q = R_KS / 4;
+#pragma unroll
+  for (int i = 0; i < R_TM * Q / R_THREADS; ++i) {
+    const int e = threadIdx.x + i * R_THREADS, r = e / Q, c = k0 + (e - r * Q) * 4;
+    const long long row = r0 + r;
+    const bool rin = row < M;
+    const float* src = m + (rin ? row * K + c : 0);
+    float* d = dst + r * R_LDA + (c - k0);
+    if (vec) {
+      const bool in = rin && c < K;
+      cp_async16_or_zero(d, in ? src : m, in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = rin && c + j < K;
+        cp_async4_or_zero(d + j, in ? src + j : m, in);
+      }
+    }
+  }
+}
+
+// An A slice through registers: columns k0 + 4 (tid % 2) + 8i .. + 3 (i <
+// 4) of row r of a row-major (M x K) matrix (a warp reads 16 rows x 32
+// bytes); zero past M and K. vec: 16-byte loads.
+__device__ __forceinline__ void load_a(float4 (&v)[4], const float* m, int M,
+                                       int K, long long r, int k0, bool vec) {
+  const bool rin = r < M;
+  const int kc = k0 + (threadIdx.x & 1) * 4;
+  const float* src = m + (rin ? r * K + kc : 0);
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = rin && kc + 8 * i < K
+                 ? __ldg(reinterpret_cast<const float4*>(src + 8 * i))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = rin && kc + 8 * i + j < K ? __ldg(src + 8 * i + j) : 0.f;
+      v[i] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+}
+// ... stored transposed into a stage's [k][row] slice: for each store a
+// warp's 32 lanes hit 32 distinct banks (16 rows; columns 4 apart, 16 banks
+// apart at a stride of R_LDT)
+__device__ __forceinline__ void store_a(float* dst, const float4 (&v)[4]) {
+  float* d = dst + (threadIdx.x & 1) * 4 * R_LDT + (threadIdx.x >> 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    d[8 * i * R_LDT] = v[i].x;
+    d[(8 * i + 1) * R_LDT] = v[i].y;
+    d[(8 * i + 2) * R_LDT] = v[i].z;
+    d[(8 * i + 3) * R_LDT] = v[i].w;
+  }
+}
+
+// A B slice by cp.async: rows k0.. (R_KS) and W columns of a row-major
+// matrix into a stage's [k][column] slice of row stride W; `src(k, col)`
+// gives column col's address in row k (col < ncols), zero past kend and
+// ncols. vec: 16-byte pieces (every 4 columns contiguous and on a 16-byte
+// boundary).
+template <int W, typename Src>
+__device__ __forceinline__ void stage_b(float* dst, int k0, int kend,
+                                        int ncols, bool vec, const float* any,
+                                        Src src) {
+  constexpr int Q = W / 4;
+#pragma unroll
+  for (int i = 0; i < R_KS * Q / R_THREADS; ++i) {
+    const int e = threadIdx.x + i * R_THREADS, r = e / Q, c = (e - r * Q) * 4;
+    const bool rin = k0 + r < kend;
+    float* d = dst + r * W + c;
+    if (vec) {
+      const bool in = rin && c < ncols;
+      cp_async16_or_zero(d, in ? src(k0 + r, c) : any, in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = rin && c + j < ncols;
+        cp_async4_or_zero(d + j, in ? src(k0 + r, c + j) : any, in);
+      }
+    }
+  }
+}
+
+// Thread (ty, tx) owns columns 4tx.. and 64 + J2 tx.. of a W-wide N block (4
+// + J2, J2 = (W - 64) / 16: 8 of 128, 6 of 96) and 8 rows of its tile: rows
+// ty + 16i where A is [row][k] (rk), rows 4ty.. and 64 + 4ty.. where A is
+// [k][row] (kr). A quarter-warp shares ty and holds 8 consecutive tx, so
+// every shared read is a broadcast or contiguous.
+__device__ __forceinline__ int rk_row(int ty, int i) { return ty + 16 * i; }
+__device__ __forceinline__ int kr_row(int ty, int i) {
+  return (i < 4 ? 0 : 60) + ty * 4 + i;
+}
+template <int W>
+__device__ __forceinline__ int mt_col(int tx, int j) {
+  return j < 4 ? tx * 4 + j : 64 + (W - 64) / 16 * tx + (j - 4);
+}
+
+// B[kk] at this thread's columns: an LDS.128 and an LDS.128 / .64
+template <int W>
+__device__ __forceinline__ void load_bv(float (&bv)[4 + (W - 64) / 16],
+                                        const float* b, const float* b2) {
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+  if constexpr (W == 128) {
+    const float4 b1 = *reinterpret_cast<const float4*>(b2);
+    bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+  } else {
+    static_assert(W == 96, "micro-tiles are 8 x 6 or 8 x 8");
+    const float2 b1 = *reinterpret_cast<const float2*>(b2);
+    bv[4] = b1.x; bv[5] = b1.y;
+  }
+}
+
+// acc[i][j] += sum_kk A[row i][kk] B[kk][column j] over K steps: A [row][k]
+// at a stride of LDA (rows rk_row), B [k][column] at a stride of W. Every
+// four K steps read the 8 rows' A with eight LDS.128 and B with two reads per
+// step. Each acc[i][j] is one fmaf chain in ascending k. Unrolled by U
+// (min(U, K) steps per trip).
+template <int W, int K, int U, int LDA>
+__device__ __forceinline__ void fma_rk(float (&acc)[8][4 + (W - 64) / 16],
+                                       const float* A, const float* B, int ty,
+                                       int tx) {
+  constexpr int NJ = 4 + (W - 64) / 16, UK = U < K ? U : K;
+  static_assert(K % UK == 0 && UK % 4 == 0, "the unroll divides K by fours");
+  const float* a = A + ty * LDA;
+  const float* b = B + tx * 4;
+  const float* b2 = B + 64 + tx * ((W - 64) / 16);
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += UK)
+#pragma unroll
+  for (int kq = k0; kq < k0 + UK; kq += 4) {
+    float4 a4[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      a4[i] = *reinterpret_cast<const float4*>(a + 16 * i * LDA + kq);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float bv[NJ];
+      load_bv<W>(bv, b + (kq + u) * W, b2 + (kq + u) * W);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float av = u == 0 ? a4[i].x : u == 1 ? a4[i].y : u == 2 ? a4[i].z
+                                                                     : a4[i].w;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// The same with A [k][row] at a stride of R_LDT (rows kr_row): one outer
+// product per K step from two LDS.128 of A and two reads of B.
+template <int W, int K, int U>
+__device__ __forceinline__ void fma_kr(float (&acc)[8][4 + (W - 64) / 16],
+                                       const float* A, const float* B, int ty,
+                                       int tx) {
+  constexpr int NJ = 4 + (W - 64) / 16, UK = U < K ? U : K;
+  static_assert(K % UK == 0, "the unroll divides K");
+  const float* a = A + ty * 4;
+  const float* b = B + tx * 4;
+  const float* b2 = B + 64 + tx * ((W - 64) / 16);
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += UK)
+#pragma unroll
+  for (int kk = k0; kk < k0 + UK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + kk * R_LDT);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + kk * R_LDT + 64);
+    float bv[NJ];
+    load_bv<W>(bv, b + kk * W, b2 + kk * W);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// N contiguous floats of a row at column col (< width) <- v[0..N), in one
+// 8- or 16-byte store (vec) or 4-byte stores masked past width
+template <int N>
+__device__ __forceinline__ void store_piece(float* row, int col, int width,
+                                            const float* v, bool vec) {
+  if (vec) {
+    if (col >= width) return;
+    if constexpr (N == 4)
+      *reinterpret_cast<float4*>(row + col) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(row + col) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      if (col + e < width) row[col + e] = v[e];
+  }
+}
+// ... and its load (zero past width). Plain loads: (a1) reads back the
+// workspace it writes.
+template <int N>
+__device__ __forceinline__ void load_piece(float (&v)[N], const float* row,
+                                           int col, int width, bool vec) {
+  if (vec) {
+    if constexpr (N == 4) {
+      const float4 t = col < width ? *reinterpret_cast<const float4*>(row + col)
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const float2 t = col < width ? *reinterpret_cast<const float2*>(row + col)
+                                   : make_float2(0.f, 0.f);
+      v[0] = t.x; v[1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = col + e < width ? row[col + e] : 0.f;
+  }
+}
+
+struct RowsArgs {
+  const float* h1;   // (M, Na)
+  const float* wb;   // (Na, Nb)
+  const float* wbt;  // Wb^T, (Nb, Na)
   const float* bb;
-  const void* wc;
-  const float* g;
-  void* dx[MAX_BRANCHES];
-  void* h2ws;     // (M, Nb) T
-  void* dpre2ws;  // (M, Nb) T
-  void* dpre1ws;  // (M, Na) T
-  int k, M, C, Na, Nb, Nc;
+  const float* wc;   // (Nb, Nc)
+  const float* g;    // (M, Nc)
+  float* h2ws;       // (M, Nb)
+  float* dpre2ws;    // (M, Nb)
+  float* dpre1ws;    // (M, Na); a pass before the last holds dh1's partial sum
+  int M, Na, Nb, Nc;
   float slope;
+  // 16-byte pieces: the width a multiple of 4 and the operand on a 16-byte
+  // boundary (else 4-byte pieces)
+  bool vec_h1, vec_wb, vec_wbt, vec_h2, vec_d1;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) bwd_rows_kernel(RowArgs a) {
-  // column-major tiles ([column][row], stride LD): h1s [Na], gs [Nc] (g
-  // rounded to T), d2s [Nb] (dpre2), d1s [Na] (dpre1)
-  extern __shared__ float4 smem4[];
-  float* h1s = reinterpret_cast<float*>(smem4);
-  float* gs = h1s + LD * a.Na;
-  float* d2s = gs + LD * a.Nc;
-  float* d1s = d2s + LD * a.Nb;
+// (a1): per tile, per pass of R_NBP columns of Nb: pre2, dh2, h2 and dpre2;
+// then per chunk of R_NCH columns of Na: dh1 and (last pass) dpre1.
+// Persistent: block b walks tiles b, b + gridDim.x, ...
+__global__ void __launch_bounds__(R_THREADS, 1)
+bwd_rows_fma_kernel(RowsArgs a) {
+  extern __shared__ float4 smem_rows[];
+  float* sm = reinterpret_cast<float*>(smem_rows);
+  float* sA = sm;
+  float* sB = sm + RW_OFF_B;
+  float* sD = sm + RW_OFF_D;
+  float* sG = sm + RW_OFF_G;
+  float* sC = sm + RW_OFF_C;
+  unsigned* sM = reinterpret_cast<unsigned*>(sm + RW_OFF_M);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  const int M = a.M, Na = a.Na, Nb = a.Nb, Nc = a.Nc;
+  const int ksa = (Na + R_KS - 1) / R_KS;  // pre2's slices
+  const int nch = (Na + R_NCH - 1) / R_NCH;
+  const int npass = (Nb + R_NBP - 1) / R_NBP;
+  const int ngrp = (Nc + R_NCG - 1) / R_NCG;
+  const bool g_resident = ngrp == 1;  // g's tile prefetched with its first slice
+  const bool wc_resident = g_resident && npass == 1;  // Wc^T loaded once
+  const int n_tiles = (M + R_TM - 1) / R_TM;
+  // dh1's slices in a pass (the last pass may be part-filled)
+  auto ksb = [&](int pass) {
+    return (min(R_NBP, Nb - pass * R_NBP) + R_KS - 1) / R_KS;
+  };
 
-  const long long r0 = (long long)blockIdx.x * TM;
-  const int rows = (int)min((long long)TM, (long long)a.M - r0);
-  const int tid = threadIdx.x;
-  const T* h1 = static_cast<const T*>(a.h1);
-
-  // consecutive threads read consecutive columns of one row
-  for (int e = tid; e < TM * a.Na; e += THREADS) {
-    const int r = e / a.Na;
-    const int c = e - r * a.Na;
-    h1s[c * LD + r] = r < rows ? to_f32(h1[(r0 + r) * a.Na + c]) : 0.f;
-  }
-  for (int e = tid; e < TM * a.Nc; e += THREADS) {
-    const int r = e / a.Nc;
-    const int c = e - r * a.Nc;
-    gs[c * LD + r] = r < rows ? round_to<T>(a.g[(r0 + r) * a.Nc + c]) : 0.f;
-  }
-  __syncthreads();
-
-  // pre2 / h2 (recomputed) and dpre2: one work item = 8 rows x 1 column
-  const T* wb = static_cast<const T*>(a.wb);
-  const T* wc = static_cast<const T*>(a.wc);
-  T* h2ws = static_cast<T*>(a.h2ws);
-  T* dpre2ws = static_cast<T*>(a.dpre2ws);
-  for (int e = tid; e < (TM / 8) * a.Nb; e += THREADS) {
-    const int rg = e / a.Nb;
-    const int j = e - rg * a.Nb;
-    float s[8];
+  // g's rows of a tile, columns grp R_NCG.., into buffer buf of sG
+  // ([row][n]) by cp.async
+  auto load_g = [&](int tile, int grp, int buf) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = 0.f;
-    for (int c = 0; c < a.Na; ++c) {
-      const float wv = to_f32(wb[c * a.Nb + j]);
-      const float4* hc = reinterpret_cast<const float4*>(h1s + c * LD + rg * 8);
-      const float4 u = hc[0], v = hc[1];
-      s[0] = fmaf(u.x, wv, s[0]);
-      s[1] = fmaf(u.y, wv, s[1]);
-      s[2] = fmaf(u.z, wv, s[2]);
-      s[3] = fmaf(u.w, wv, s[3]);
-      s[4] = fmaf(v.x, wv, s[4]);
-      s[5] = fmaf(v.y, wv, s[5]);
-      s[6] = fmaf(v.z, wv, s[6]);
-      s[7] = fmaf(v.w, wv, s[7]);
+    for (int i = 0; i < R_NCG * R_TM / R_THREADS; ++i) {
+      const int e = tid + i * R_THREADS, r = e / R_NCG, n = e % R_NCG;
+      const long long row = (long long)tile * R_TM + r;
+      const int col = grp * R_NCG + n;
+      const bool in = row < M && col < Nc;
+      cp_async4_or_zero(sG + (buf * R_TM + r) * R_LDG + n,
+                        in ? a.g + row * Nc + col : a.g, in);
     }
-    float d[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = 0.f;
-    for (int n = 0; n < a.Nc; ++n) {
-      const float wv = to_f32(wc[j * a.Nc + n]);
-      const float4* gc = reinterpret_cast<const float4*>(gs + n * LD + rg * 8);
-      const float4 u = gc[0], v = gc[1];
-      d[0] = fmaf(u.x, wv, d[0]);
-      d[1] = fmaf(u.y, wv, d[1]);
-      d[2] = fmaf(u.z, wv, d[2]);
-      d[3] = fmaf(u.w, wv, d[3]);
-      d[4] = fmaf(v.x, wv, d[4]);
-      d[5] = fmaf(v.y, wv, d[5]);
-      d[6] = fmaf(v.z, wv, d[6]);
-      d[7] = fmaf(v.w, wv, d[7]);
+  };
+  // Wc^T rows grp R_NCG.. (Nc), columns of the pass (Nb) into sC ([n][j])
+  auto load_wc = [&](int pass, int grp) {
+    for (int e = tid; e < R_NCG * R_NBP; e += R_THREADS) {
+      const int n = grp * R_NCG + e / R_NBP, j = pass * R_NBP + e % R_NBP;
+      sC[e] = n < Nc && j < Nb ? a.wc[(size_t)j * Nc + n] : 0.f;
     }
-    const float bj = a.bb[j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = rg * 8 + i;
-      const float pre2 = s[i] + bj;
-      const float dp2 = round_to<T>(pre2 >= 0.f ? d[i] : a.slope * d[i]);
-      d2s[j * LD + r] = dp2;
-      if (r < rows) {
-        h2ws[(r0 + r) * a.Nb + j] = from_f32<T>(lrelu(pre2, a.slope));
-        dpre2ws[(r0 + r) * a.Nb + j] = from_f32<T>(dp2);
+  };
+
+  // The next step to stage: the block's ni-th tile nt, pass np, chunk nc
+  // (-1: pre2's slices), slice nk; advanced in the order of the loops below
+  int nt = blockIdx.x, ni = 0, np = 0, nc = -1, nk = 0;
+  auto stage = [&](int st) {
+    float* dst = sB + st * R_BS;
+    if (nc < 0) {  // pre2: h1 slice, Wb[slice, pass]
+      stage_a(sA + st * R_AS, a.h1, M, Na, (long long)nt * R_TM, nk * R_KS,
+              a.vec_h1);
+      const int n0 = np * R_NBP;
+      stage_b<R_NBP>(dst, nk * R_KS, Na, Nb - n0, a.vec_wb, a.wb,
+                     [&](int k, int c) { return a.wb + (size_t)k * Nb + n0 + c; });
+      // g lands two steps before its tile: a buffer per tile parity
+      if (g_resident && np == 0 && nk == 0) load_g(nt, 0, ni & 1);
+      if (++nk == ksa) nk = 0, nc = 0;
+    } else {  // dh1: Wb^T[pass slice, chunk]
+      const int c0 = nc * R_NCH;
+      stage_b<R_NCH>(dst, np * R_NBP + nk * R_KS, Nb, Na - c0, a.vec_wbt, a.wbt,
+                     [&](int k, int c) { return a.wbt + (size_t)k * Na + c0 + c; });
+      if (++nk == ksb(np)) {
+        nk = 0;
+        if (++nc == nch) {
+          nc = -1;
+          if (++np == npass) np = 0, nt += gridDim.x, ++ni;
+        }
       }
     }
+  };
+  int s = 0;  // the step whose slices are in stage s % R_STAGES
+  // one step: the slices of step s + 2 load while this one's compute runs
+  auto step = [&](auto&& compute) {
+    if (nt < n_tiles) stage((s + 2) % R_STAGES);
+    cp_async_commit();
+    compute(sA + (s % R_STAGES) * R_AS, sB + (s % R_STAGES) * R_BS);
+    cp_async_wait<1>();
+    __syncthreads();  // stage s is free; stage s + 1 landed
+    ++s;
+  };
+
+  if (wc_resident) load_wc(0, 0);
+  for (int i = 0; i < R_STAGES - 1; ++i) {  // steps 0 and 1
+    if (nt < n_tiles) stage(i);
+    cp_async_commit();
   }
+  cp_async_wait<1>();
   __syncthreads();
 
-  // dpre1: thread owns columns tid + q*THREADS for all TM rows
-  const T* wbt = static_cast<const T*>(a.wbt);
-  T* dpre1ws = static_cast<T*>(a.dpre1ws);
-  float acc[QA][TM];
+  int pi = 0, ti = 0;  // (tile, pass) iterations and tiles before this one
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++ti) {
+    const long long r0 = (long long)tile * R_TM;
+    const float* g_tile = sG + (ti & 1) * R_TM * R_LDG;
+    for (int pass = 0; pass < npass; ++pass, ++pi) {
+      // ---- pre2 = h1 Wb[:, pass], and h1's signs for dpre1's mask ----
+      unsigned* signs = sM + (pi & 1) * RW_MASK;
+      float pre[8][6] = {};
+      for (int q = 0; q < ksa; ++q)
+        step([&](const float* A, const float* B) {
+          // this thread's half row of the slice: bit o for column o
+          const float* hr = A + (tid >> 1) * R_LDA + (tid & 1) * 16;
+          unsigned bits = 0;
 #pragma unroll
-  for (int q = 0; q < QA; ++q)
-#pragma unroll
-    for (int r = 0; r < TM; ++r) acc[q][r] = 0.f;
-  for (int j = 0; j < a.Nb; ++j) {
-    const float4* dc = reinterpret_cast<const float4*>(d2s + j * LD);
-#pragma unroll
-    for (int q = 0; q < QA; ++q) {
-      const int c = tid + q * THREADS;
-      const float wv = c < a.Na ? to_f32(wbt[(long long)j * a.Na + c]) : 0.f;
-#pragma unroll
-      for (int r4 = 0; r4 < TM / 4; ++r4) {
-        const float4 v = dc[r4];
-        acc[q][4 * r4 + 0] = fmaf(v.x, wv, acc[q][4 * r4 + 0]);
-        acc[q][4 * r4 + 1] = fmaf(v.y, wv, acc[q][4 * r4 + 1]);
-        acc[q][4 * r4 + 2] = fmaf(v.z, wv, acc[q][4 * r4 + 2]);
-        acc[q][4 * r4 + 3] = fmaf(v.w, wv, acc[q][4 * r4 + 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < QA; ++q) {
-    const int c = tid + q * THREADS;
-    if (c < a.Na) {
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const float d = acc[q][r];
-        const float dp1 = round_to<T>(h1s[c * LD + r] >= 0.f ? d : a.slope * d);
-        d1s[c * LD + r] = dp1;
-        if (r < rows) dpre1ws[(r0 + r) * a.Na + c] = from_f32<T>(dp1);
-      }
-    }
-  }
-  __syncthreads();
+          for (int c = 0; c < 16; c += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(hr + c);
+            bits |= (unsigned)(v.x >= 0.f) << c | (unsigned)(v.y >= 0.f) << (c + 1) |
+                    (unsigned)(v.z >= 0.f) << (c + 2) |
+                    (unsigned)(v.w >= 0.f) << (c + 3);
+          }
+          bits <<= (tid & 1) * 16;
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+          if ((tid & 1) == 0) signs[(tid >> 1) * R_MAX_KS + q] = bits;
+          fma_rk<R_NBP, R_KS, ROWS_UNROLL, R_LDA>(pre, A, B, ty, tx);
+        });
 
-  // dx_i: one work item = 8 rows x 1 input channel
-  for (int br = 0; br < a.k; ++br) {
-    const T* x = static_cast<const T*>(a.x[br]);
-    const T* wat = static_cast<const T*>(a.wat[br]);
-    T* dx = static_cast<T*>(a.dx[br]);
-    for (int e = tid; e < (TM / 8) * a.C; e += THREADS) {
-      const int rg = e / a.C;
-      const int c = e - rg * a.C;
-      float s[8];
+      // ---- dh2 = g Wc^T[:, pass], Nc in groups ----
+      float d[8][6] = {};
+      for (int grp = 0; grp < ngrp; ++grp) {
+        if (!wc_resident) {
+          if (grp > 0) __syncthreads();  // the last group is read
+          if (!g_resident) {
+            load_g(tile, grp, ti & 1);
+            cp_async_commit();
+          }
+          load_wc(pass, grp);
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+        fma_rk<R_NBP, R_NCG, R_NCG, R_LDG>(d, g_tile, sC, ty, tx);
+      }
+
+      // ---- h2 = lrelu(pre2 + bb), dpre2 = mask(pre2) dh2 ----
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] = 0.f;
-      for (int n = 0; n < a.Na; ++n) {
-        const float wv = to_f32(wat[(long long)n * a.C + c]);
-        const float4* dc = reinterpret_cast<const float4*>(d1s + n * LD + rg * 8);
-        const float4 u = dc[0], v = dc[1];
-        s[0] = fmaf(u.x, wv, s[0]);
-        s[1] = fmaf(u.y, wv, s[1]);
-        s[2] = fmaf(u.z, wv, s[2]);
-        s[3] = fmaf(u.w, wv, s[3]);
-        s[4] = fmaf(v.x, wv, s[4]);
-        s[5] = fmaf(v.y, wv, s[5]);
-        s[6] = fmaf(v.z, wv, s[6]);
-        s[7] = fmaf(v.w, wv, s[7]);
+      for (int j = 0; j < 6; ++j) {
+        const int cj = mt_col<R_NBP>(tx, j), n = pass * R_NBP + cj;
+        const float bj = n < Nb ? a.bb[n] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float p = pre[i][j] + bj;
+          d[i][j] = p >= 0.f ? d[i][j] : a.slope * d[i][j];
+          pre[i][j] = lrelu(p, a.slope);
+          sD[cj * R_LDT + rk_row(ty, i)] = d[i][j];
+        }
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-        if (r < rows) {
-          const long long off = (r0 + r) * a.C + c;
-          const float xv = to_f32(x[off]);
-          dx[off] = from_f32<T>(xv >= 0.f ? s[i] : a.slope * s[i]);
+        const long long r = r0 + rk_row(ty, i);
+        if (r >= M) continue;
+        const int c0 = pass * R_NBP + mt_col<R_NBP>(tx, 0);
+        const int c1 = pass * R_NBP + mt_col<R_NBP>(tx, 4);
+        store_piece<4>(a.h2ws + r * Nb, c0, Nb, pre[i], a.vec_h2);
+        store_piece<2>(a.h2ws + r * Nb, c1, Nb, pre[i] + 4, a.vec_h2);
+        store_piece<4>(a.dpre2ws + r * Nb, c0, Nb, d[i], a.vec_h2);
+        store_piece<2>(a.dpre2ws + r * Nb, c1, Nb, d[i] + 4, a.vec_h2);
+      }
+      __syncthreads();  // the pass's dpre2 tile and h1's signs are whole
+
+      // ---- per chunk of Na: dh1 = dpre2 Wb^T[pass, chunk]; dpre1 ----
+      const bool last = pass == npass - 1;
+      for (int chunk = 0; chunk < nch; ++chunk) {
+        const int c0 = chunk * R_NCH;
+        float acc[8][8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {  // a pass after the first continues the sum
+          const long long r = r0 + kr_row(ty, i);
+          const float* row = a.dpre1ws + (r < M ? r : 0) * Na;
+          float v[4], w[4];
+          if (pass > 0 && r < M) {
+            load_piece<4>(v, row, c0 + mt_col<R_NCH>(tx, 0), Na, a.vec_d1);
+            load_piece<4>(w, row, c0 + mt_col<R_NCH>(tx, 4), Na, a.vec_d1);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = w[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = v[e], acc[i][4 + e] = w[e];
+        }
+        for (int q = 0; q < ksb(pass); ++q)
+          step([&](const float*, const float* B) {
+            fma_kr<R_NCH, R_KS, ROWS_UNROLL>(acc, sD + q * R_KS * R_LDT, B, ty,
+                                             tx);
+          });
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const long long r = r0 + kr_row(ty, i);
+          if (r >= M) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int c = c0 + mt_col<R_NCH>(tx, 4 * h);
+            float v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * h + e];
+            if (last) {  // the mask: h1's signs, taken from pre2's slices
+              const unsigned w = signs[kr_row(ty, i) * R_MAX_KS + (c >> 5)];
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[e] = w >> ((c & 31) + e) & 1u ? v[e] : a.slope * v[e];
+            }
+            store_piece<4>(a.dpre1ws + r * Na, c, Na, v, a.vec_d1);
+          }
         }
       }
+    }
+  }
+}
+
+struct DxArgs {
+  const float* x[MAX_BRANCHES];
+  const float* wat[MAX_BRANCHES];  // Wa_i^T, (Na, C)
+  float* dx[MAX_BRANCHES];
+  const float* dpre1;  // (M, Na), from (a1)
+  int k, M, C, Na;
+  float slope;
+  bool vec_d1, vec_wa, vec_x;  // 16-byte pieces, as RowsArgs
+};
+
+// Column col of Wa_cat^T / dx_cat (k <= 4 branches of C) is channel col - br
+// C of branch br.
+__device__ __forceinline__ int branch_of(int col, int C) {
+  return (col >= C) + (col >= 2 * C) + (col >= 3 * C);
+}
+// p[i] by selects: an argument array indexed at run time would be copied to
+// the stack
+template <typename T>
+__device__ __forceinline__ T pick(T const (&p)[MAX_BRANCHES], int i) {
+  return i == 0 ? p[0] : i == 1 ? p[1] : i == 2 ? p[2] : p[3];
+}
+
+// dx_i = mask(x_i) dx_cat on P columns col.. of the thread's 8 rows
+// (kr_row) of the tile at r0, dx_cat's values in acc[i][j0..]. vec: the
+// piece lies in one branch (C a multiple of 4) and moves in one load and one
+// store; else each column finds its own branch, 4-byte pieces.
+template <int P, int NJ>
+__device__ __forceinline__ void store_dx(const DxArgs& a, long long r0, int ty,
+                                         int col, const float (&acc)[8][NJ],
+                                         int j0) {
+  const int C = a.C, N = a.k * C;
+  if (col >= N) return;
+  if (a.vec_x) {
+    const int br = branch_of(col, C), c = col - br * C;
+    const float* x = pick(a.x, br);
+    float* dx = pick(a.dx, br);
+    float xv[8][P];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // every load first: they overlap
+      const long long r = r0 + kr_row(ty, i);
+      load_piece<P>(xv[i], x + (r < a.M ? r : 0) * C, c, C, true);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const long long r = r0 + kr_row(ty, i);
+      if (r >= a.M) continue;
+      float v[P];
+#pragma unroll
+      for (int e = 0; e < P; ++e)
+        v[e] = xv[i][e] >= 0.f ? acc[i][j0 + e] : a.slope * acc[i][j0 + e];
+      store_piece<P>(dx + r * C, c, C, v, true);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < P; ++e) {
+      if (col + e >= N) break;
+      const int br = branch_of(col + e, C), c = col + e - br * C;
+      const float* x = pick(a.x, br);
+      float* dx = pick(a.dx, br);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const long long r = r0 + kr_row(ty, i);
+        if (r >= a.M) continue;
+        const float v = acc[i][j0 + e];
+        dx[r * C + c] = x[r * C + c] >= 0.f ? v : a.slope * v;
+      }
+    }
+  }
+}
+
+// (a2): per tile and chunk of DX_NCH columns of k C, dx_cat = dpre1 Wa_cat^T
+// over Na's slices, masked by x_i's sign. Persistent, as (a1); its A (dpre1)
+// comes through registers into [k][row] slices.
+__global__ void __launch_bounds__(R_THREADS, 1)
+bwd_dx_fma_kernel(DxArgs a) {
+  constexpr int J2 = (DX_NCH - 64) / 16;
+  extern __shared__ float4 smem_dx[];
+  float* sA = reinterpret_cast<float*>(smem_dx);
+  float* sB = sA + DX_STAGES * DX_AS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+  const int M = a.M, C = a.C, Na = a.Na, N = a.k * C;
+  const int ks = (Na + R_KS - 1) / R_KS;
+  const int nch = (N + DX_NCH - 1) / DX_NCH;
+  const int n_tiles = (M + R_TM - 1) / R_TM;
+
+  int nt = blockIdx.x, nc = 0, nk = 0;  // the next step: tile, chunk, slice
+  float4 av[4];
+  auto stage = [&](int st) {
+    load_a(av, a.dpre1, M, Na, (long long)nt * R_TM + (tid >> 1), nk * R_KS,
+           a.vec_d1);
+    const int c0 = nc * DX_NCH;
+    stage_b<DX_NCH>(sB + st * R_BS, nk * R_KS, Na, N - c0, a.vec_wa, a.wat[0],
+                    [&](int k, int c) {
+                      const int col = c0 + c, br = branch_of(col, C);
+                      return pick(a.wat, br) + (size_t)k * C + (col - br * C);
+                    });
+    if (++nk == ks) {
+      nk = 0;
+      if (++nc == nch) nc = 0, nt += gridDim.x;
+    }
+  };
+
+  stage(0);
+  cp_async_commit();
+  store_a(sA, av);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int s = 0;  // the step whose slices are in stage s % 2
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = (long long)tile * R_TM;
+    for (int chunk = 0; chunk < nch; ++chunk) {
+      float acc[8][4 + J2] = {};
+      for (int q = 0; q < ks; ++q, ++s) {
+        const int cur = s & 1;
+        const bool more = nt < n_tiles;
+        if (more) stage(cur ^ 1);  // step s + 1's slices
+        cp_async_commit();
+        fma_kr<DX_NCH, R_KS, DX_UNROLL>(acc, sA + cur * DX_AS, sB + cur * R_BS,
+                                        ty, tx);
+        if (more) store_a(sA + (cur ^ 1) * DX_AS, av);
+        cp_async_wait<0>();
+        __syncthreads();  // stage s is free; stage s + 1 landed
+      }
+
+      // ---- dx_i = mask(x_i) dx_cat, two column pieces per row ----
+      const int col = chunk * DX_NCH;
+      store_dx<4>(a, r0, ty, col + mt_col<DX_NCH>(tx, 0), acc, 0);
+      store_dx<J2>(a, r0, ty, col + mt_col<DX_NCH>(tx, 4), acc, 4);
     }
   }
 }
@@ -944,22 +1446,49 @@ wgrad_tc_kernel(TcGradArgs g) {
   }
 }
 
-template <typename T>
-int launch(const RowArgs& ra, GradArgs& ga, float* dw, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * LD * (size_t)(2 * ra.Na + ra.Nb + ra.Nc);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// fp32: (a1), (a2), (b), (c). As nin_head.cu's launchers, the row
+// kernels' attributes are set, and the device's SM count read, on a
+// device's first launch; their grid is min(tiles, SMs), persistent blocks.
+int launch_f32(const RowsArgs& ra, const DxArgs& da, GradArgs& ga, float* dw,
+               cudaStream_t stream) {
+  static_assert(RW_SMEM <= SMEM_LIMIT && DX_SMEM <= SMEM_LIMIT,
+                "fp32 K3 (a) exceeds a block's shared memory");
+  static std::atomic<int> sms_of[MAX_DEVICES];  // 0: not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  bwd_rows_kernel<T><<<(unsigned)((ra.M + TM - 1) / TM), THREADS, smem,
-                       stream>>>(ra);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    const void* kernels[2] = {(const void*)bwd_rows_fma_kernel,
+                              (const void*)bwd_dx_fma_kernel};
+    const int smem[2] = {RW_SMEM, DX_SMEM};
+    for (int i = 0; i < 2; ++i) {
+      err = cudaFuncSetAttribute(kernels[i],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem[i]);
+      if (err != cudaSuccess) return (int)err;
+      err = cudaFuncSetAttribute(kernels[i],
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  const int tiles = (int)(((long long)ra.M + R_TM - 1) / R_TM);
+  const int grid = tiles < sms ? tiles : sms;
+  bwd_rows_fma_kernel<<<grid, R_THREADS, RW_SMEM, stream>>>(ra);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dx_fma_kernel<<<grid, R_THREADS, DX_SMEM, stream>>>(da);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const Job& last = ga.job[ga.n_jobs - 1];
-  const int tiles = last.tile0 + ((last.P + last.ones + WT - 1) / WT) * last.tiles_q;
-  wgrad_partial_kernel<T><<<dim3(tiles, ga.S), THREADS, 0, stream>>>(ga);
+  const int wtiles = last.tile0 + ((last.P + last.ones + WT - 1) / WT) * last.tiles_q;
+  wgrad_partial_kernel<float><<<dim3(wtiles, ga.S), THREADS, 0, stream>>>(ga);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1111,19 +1640,43 @@ extern "C" int nin_head_bwd(
     return launch_tc(ra, ga, S, dwf, s);
   }
 
-  if (Na > QA * THREADS) return (int)cudaErrorInvalidValue;
-  char* wsb = static_cast<char*>(ws);
-  RowArgs ra;
-  for (int i = 0; i < MAX_BRANCHES; ++i) {
-    ra.x[i] = xs[i]; ra.wat[i] = was[i]; ra.dx[i] = dxs[i];
-  }
-  ra.h1 = h1; ra.wb = wb; ra.wbt = wbt; ra.bb = static_cast<const float*>(bb); ra.wc = wc;
+  if (Na > R_MAX_KS * R_KS) return (int)cudaErrorInvalidValue;
+  auto on16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  float* wsf = static_cast<float*>(ws);
+  RowsArgs ra;
+  ra.h1 = static_cast<const float*>(h1);
+  ra.wb = static_cast<const float*>(wb);
+  ra.wbt = static_cast<const float*>(wbt);
+  ra.bb = static_cast<const float*>(bb);
+  ra.wc = static_cast<const float*>(wc);
   ra.g = static_cast<const float*>(g);
-  ra.h2ws = wsb;
-  ra.dpre2ws = wsb + sizeof(float) * (size_t)M * Nb;
-  ra.dpre1ws = wsb + sizeof(float) * (size_t)M * 2 * Nb;
-  ra.k = k; ra.M = M; ra.C = C; ra.Na = Na; ra.Nb = Nb; ra.Nc = Nc;
+  ra.h2ws = wsf;
+  ra.dpre2ws = wsf + (size_t)M * Nb;
+  ra.dpre1ws = wsf + (size_t)M * 2 * Nb;
+  ra.M = M; ra.Na = Na; ra.Nb = Nb; ra.Nc = Nc;
   ra.slope = slope;
+  ra.vec_h1 = Na % 4 == 0 && on16(h1);
+  ra.vec_wb = Nb % 4 == 0 && on16(wb);
+  ra.vec_wbt = Na % 4 == 0 && on16(wbt);
+  ra.vec_h2 = Nb % 4 == 0 && on16(ra.h2ws) && on16(ra.dpre2ws);
+  ra.vec_d1 = Na % 4 == 0 && on16(ra.dpre1ws);
+  DxArgs da;
+  da.vec_wa = da.vec_x = C % 4 == 0;
+  for (int i = 0; i < MAX_BRANCHES; ++i) {
+    da.x[i] = static_cast<const float*>(xs[i]);
+    da.wat[i] = static_cast<const float*>(was[i]);
+    da.dx[i] = static_cast<float*>(dxs[i]);
+    if (i < k) {
+      da.vec_wa = da.vec_wa && on16(was[i]);
+      da.vec_x = da.vec_x && on16(xs[i]) && on16(dxs[i]);
+    }
+  }
+  da.dpre1 = ra.dpre1ws;
+  da.k = k; da.M = M; da.C = C; da.Na = Na;
+  da.slope = slope;
+  da.vec_d1 = ra.vec_d1;
 
   GradArgs ga;
   ga.n_jobs = 0;
@@ -1142,5 +1695,5 @@ extern "C" int nin_head_bwd(
   ga.total = out;
   ga.partial = static_cast<float*>(partial);
   ga.slope = slope;
-  return launch<float>(ra, ga, dwf, s);
+  return launch_f32(ra, da, ga, dwf, s);
 }

@@ -38,8 +38,8 @@ from ssdn_tpu_torch.kernels import refuse_graph_cut
 
 SLOPE = 0.1
 MAX_BRANCHES = 4
-# K3 only (both dtypes): layer-a columns, 2 per thread x 256 threads. K2
-# walks Na in chunks and takes any Na (bf16: any multiple of 8).
+# K3 only (both dtypes): layer-a columns. K2 walks Na in chunks and takes
+# any Na (bf16: any multiple of 8).
 MAX_NA = 512
 
 #: CUDA launches since the last reset (set to 0 to reset): K2, the
@@ -64,8 +64,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # K3's launch geometry; csrc/nin_head_bwd.cu uses the same numbers.
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-_ROWS_F32 = 32           # (a) rows per block, fp32 FMA kernel
-_LD_F32 = _ROWS_F32 + 4  # its shared tile stride (floats)
 _TILE_F32 = 64           # (b) fp32 output tile, square
 _ROWS_TC = 64            # (a) rows per block, bf16 tensor-core kernel
 _WA_CHUNK = 32           # (a) Wa_i columns per stage of its ring
@@ -75,7 +73,25 @@ _STAGE_ROWS = 32         # (b) bf16 rows per stage of its ring
 _WG_STAGES = 4           # (b) the ring's stages
 _SKEW = 8                # bf16 elements added to every shared row
 _MAX_C_TC = 256          # (a) bf16: dx_i's columns all in one warp pass
-
+# fp32 (a) on the FMA pipes, two launches: 128-row tiles, K in slices of
+# 32, 256 threads, one block per SM. (a1) pre2 in passes of 96 columns of
+# Nb, dh2's Nc in groups of 16, dh1 in chunks of 128 columns of Na, through a
+# 3-stage ring; (a2) dx in chunks of 128 columns of k C, through a 2-stage
+# ring. Shared floats: the ring (A slices of 32 columns, (a1) [row][k] with
+# rows padded by 4, (a2) [k][row] with rows of 128 + 4; B slices up to 128
+# wide) and, in (a1), the pass's dpre2 ([j][row]), g's group (two buffers,
+# [row][n], rows padded by 4), Wc^T's group, and h1's signs for dpre1's mask
+# (two buffers of one bit per row and column up to MAX_NA).
+_K3F_ROWS, _K3F_SLICE, _K3F_THREADS = 128, 32, 256
+_K3F_STAGES, _K3F_DX_STAGES = 3, 2
+_K3F_PASS, _K3F_GROUP, _K3F_CHUNK, _K3F_DX_CHUNK = 96, 16, 128, 128
+_K3F_LD = _K3F_ROWS + 4
+_K3F_B = _K3F_SLICE * _K3F_CHUNK
+_K3F_DX_SMEM = 4 * _K3F_DX_STAGES * (_K3F_SLICE * _K3F_LD + _K3F_B)
+_K3F_ROWS_SMEM = 4 * (_K3F_STAGES * (_K3F_ROWS * (_K3F_SLICE + 4) + _K3F_B)
+                      + _K3F_PASS * _K3F_LD
+                      + 2 * _K3F_ROWS * (_K3F_GROUP + 4)
+                      + _K3F_GROUP * _K3F_PASS) + 2 * _K3F_ROWS * MAX_NA // 8
 
 # K2's launch geometry; csrc/nin_head.cu uses the same numbers. bf16 (tensor
 # cores): 8 warps of 16 rows each, one block per SM, Na in chunks of 32
@@ -173,12 +189,36 @@ def _check_k2_launch(plan: K2Plan, tensors, c, na, nb, nc, dt) -> None:
 
 
 @dataclasses.dataclass(frozen=True)
+class K3RowLaunch:
+    """One of fp32 K3 (a)'s two launches ("rows": pre2, dh2, dpre2, dh1 and
+    dpre1; "dx": dx_i): rows per tile and row tiles (the grid is min(tiles,
+    SMs x blocks per SM), persistent blocks), N's columns per chunk (rows:
+    of Na; dx: of k C) and chunks per tile, K's slice and the ring's stages,
+    passes over Nb, threads, blocks per SM, shared bytes per block, and the
+    weight bytes the blocks stream from L2 per call (each tile reads its
+    weights once; rows: Wb and Wb^T, dx: the k Wa_i^T; Wc aside)."""
+    kernel: str
+    rows_per_tile: int
+    row_tiles: int
+    chunk: int
+    chunks: int
+    slice: int
+    stages: int
+    passes: int
+    threads: int
+    blocks_per_sm: int
+    smem: int
+    weight_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
 class K3Plan:
-    """What one K3 launch needs: (a) row blocks and shared bytes, (b)
-    output tiles (blocks = tiles x splits) and shared bytes, the workspace
-    (elements of x's dtype: h2, dpre2, dpre1 and, in bf16, g rounded to
-    bf16 and padded to 16 columns), the flat fp32 weight-grad sizes and
-    the partial sums (floats)."""
+    """What one K3 launch needs: (a) rows per tile, row tiles and shared
+    bytes per block (fp32: the larger of its two launches, described in
+    ``row_launches``), (b) output tiles (blocks = tiles x splits) and
+    shared bytes, the workspace (elements of x's dtype: h2, dpre2, dpre1
+    and, in bf16, g rounded to bf16 and padded to 16 columns), the flat
+    fp32 weight-grad sizes and the partial sums (floats)."""
     splits: int
     rows_per_block: int
     row_blocks: int
@@ -188,6 +228,7 @@ class K3Plan:
     workspace: int
     dw_sizes: tuple
     partial: int
+    row_launches: tuple = ()
 
     @property
     def wgrad_blocks(self) -> int:
@@ -220,9 +261,20 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                  + _cdiv(nb, _TILE_P) * _cdiv(nc, _TILE_Q) + 1)
         wsmem = _WG_STAGES * 2 * _STAGE_ROWS * (_TILE_P + _TILE_Q + 2 * _SKEW)
         ws = m * (2 * nb + na + ncp)
+        launches = ()
     else:
-        rows = _ROWS_F32
-        smem = 4 * _LD_F32 * (2 * na + nb + nc)
+        rows = _K3F_ROWS
+        n_tiles = _cdiv(m, rows)
+        launches = (
+            K3RowLaunch("rows", rows, n_tiles, _K3F_CHUNK,
+                        _cdiv(na, _K3F_CHUNK), _K3F_SLICE, _K3F_STAGES,
+                        _cdiv(nb, _K3F_PASS), _K3F_THREADS, 1, _K3F_ROWS_SMEM,
+                        4 * n_tiles * 2 * na * nb),
+            K3RowLaunch("dx", rows, n_tiles, _K3F_DX_CHUNK,
+                        _cdiv(k * c, _K3F_DX_CHUNK), _K3F_SLICE, _K3F_DX_STAGES,
+                        1, _K3F_THREADS, 1, _K3F_DX_SMEM,
+                        4 * n_tiles * k * c * na))
+        smem = max(launch.smem for launch in launches)
         t = lambda p, q: _cdiv(p, _TILE_F32) * _cdiv(q, _TILE_F32)
         # dWa_0 + dba, dWa_i, dWb + dbb, dWc, dbc
         tiles = (t(c + 1, na) + (k - 1) * t(c, na) + t(na + 1, nb)
@@ -233,15 +285,15 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                   row_blocks=_cdiv(m, rows), rows_smem=smem,
                   wgrad_tiles=tiles, wgrad_smem=wsmem,
                   workspace=ws, dw_sizes=sizes,
-                  partial=splits * sum(sizes))
+                  partial=splits * sum(sizes), row_launches=launches)
 
 
 def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:
     """What the kernels take beyond ``_check``: Na <= ``MAX_NA``, shared
-    memory within one block's limit and, for the bf16 tensor-core kernels,
-    widths C, Na, Nb that are multiples of 8 and operands on 16-byte
-    boundaries (their rows move in 16-byte copies), and C <=
-    ``_MAX_C_TC``."""
+    memory within one block's limit (fp32: fixed, any widths and
+    alignment) and, for the bf16 tensor-core kernels, widths C, Na, Nb
+    that are multiples of 8 and operands on 16-byte boundaries (their
+    rows move in 16-byte copies), and C <= ``_MAX_C_TC``."""
     if na > MAX_NA:
         raise ValueError(f"K3 supports at most {MAX_NA} layer-a columns, "
                          f"got {na}")
@@ -432,9 +484,9 @@ def nin_head_bwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     ws = torch.empty(plan.workspace, dtype=dt, device=dev)
     partial = torch.empty(plan.partial, dtype=torch.float32, device=dev)
-    # the fp32 kernel reads transposed weights along its warps; the bf16
-    # kernel reads Wa_i and Wb as they are (ldmatrix transposes in shared
-    # memory), so it takes no copies
+    # the fp32 kernels stage slices of transposed weights (Wa_i^T for dx_i,
+    # Wb^T for dh1); the bf16 kernel reads Wa_i and Wb as they are
+    # (ldmatrix transposes in shared memory), so it takes no copies
     if dt == torch.bfloat16:
         wats, wbt = list(was), None
     else:

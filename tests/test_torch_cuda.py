@@ -463,6 +463,47 @@ def test_k3_bf16_narrow_widths_match_twin(cuda, m, k):
     _k3_matches_twin(args, torch.bfloat16)
 
 
+@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 4133])
+def test_k3_fp32_ragged_rows_match_twin(cuda, m):
+    """The fp32 FMA kernels at ragged M: a 128-row tile part-filled in both
+    row launches, a stage of 32 rows in (b); the rest zero and masked."""
+    _k3_matches_twin(_k3_operands(m + 1, m, 4, 10, torch.float32),
+                     torch.float32)
+
+
+# C 3 and 99: x rows off 16-byte boundaries (4-byte pieces; dx chunks of
+# 128 columns straddle branches at 99); Na MAX_NA (four chunks of Na); Nb
+# 200 and Nc 40: three passes over Nb (dh1's partial sum carried in the
+# workspace) and three groups of Nc; the narrow widths (part-filled slices,
+# chunks and passes); C, Na and Nb not multiples of 4 (h1, Wb, Wb^T, the
+# workspace and dx in 4-byte pieces)
+K3_FP32_ODD = {"c3": dict(c=3), "c99": dict(c=99), "na512": dict(na=K2.MAX_NA),
+               "nb200-nc40": dict(nb=200, n_out=40),
+               "c40-na72-nb24": dict(c=40, na=72, nb=24, n_out=3),
+               "c16-na32-nb16": dict(c=16, na=32, nb=16, n_out=9),
+               "c5-na70-nb30": dict(c=5, na=70, nb=30, n_out=3)}
+
+
+@pytest.mark.parametrize("widths", list(K3_FP32_ODD.values()),
+                         ids=list(K3_FP32_ODD))
+def test_k3_fp32_odd_widths_match_twin(cuda, widths):
+    w = dict(widths)
+    n_out = w.pop("n_out", 10)
+    _k3_matches_twin(_k3_operands(13, 1000, 4, n_out, torch.float32, **w),
+                     torch.float32)
+
+
+def test_k3_fp32_is_bitwise_repeatable(cuda):
+    """The fp32 FMA kernels at M = 262,144 (2,048 row tiles over persistent
+    blocks, 64 splits of the weight grads): two launches give the same
+    bits."""
+    args = _k3_operands(19, 262_144, 4, 10, torch.float32)
+    a, b = K2.nin_head_bwd(*args), K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*a[0], *a[1], *a[2:]], [*b[0], *b[1], *b[2:]]):
+        assert torch.equal(x, y)
+
+
 def test_k3_bf16_refuses_what_it_does_not_take(cuda):
     """bf16 K3 raises, and launches nothing, for widths that are not
     multiples of 8 and for operands off a 16-byte boundary."""

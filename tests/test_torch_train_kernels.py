@@ -256,6 +256,45 @@ def test_k3_twin_matches_pallas_at_narrow_widths(nh_interpret, dtype):
                                    atol=_head_bar(r, dtype), err_msg=str(i))
 
 
+@pytest.mark.parametrize("widths", [dict(c=3), dict(c=99),
+                                    dict(nb=200, n_out=40),
+                                    dict(c=5, na=70, nb=30, n_out=3)],
+                         ids=["c3", "c99", "nb200-nc40", "c5-na70-nb30"])
+def test_k3_twin_matches_pallas_fp32_at_unaligned_widths(nh_interpret,
+                                                        widths):
+    """The fp32 twin of K3 against ``_bwd_call`` in interpret mode at the
+    widths the fp32 FMA kernels take in their slow ways (the card tests hold
+    the kernels against this twin there): C 3 and 99, whose rows move in
+    4-byte pieces and whose dx chunks straddle branches, Nb 200 with Nc 40
+    (three passes over Nb, three groups of Nc), and C, Na, Nb that are not
+    multiples of 4 (every operand in 4-byte pieces). Every output at 1e-5
+    of its range (summation order only)."""
+    w = dict(dict(c=C, na=NA, nb=NB, n_out=9), **widths)
+    n_out = w.pop("n_out")
+    k = 2
+    xs, was, ba, wb, bb, wc, bc, g = _jax_head(
+        _head_inputs(40 + w["c"], k, n_out, **w), jnp.float32)
+    _, h1 = NH._fwd_call(xs, was, ba[None], wb, bb[None], wc, bc[None],
+                         tm=256, interpret=True, save_h1=True)
+    ref = NH._bwd_call(xs, was, h1, wb, bb[None], wc, g, tm=256,
+                       interpret=True)
+    got = K2.nin_head_bwd(
+        [_torch_of(x) for x in xs], [_torch_of(v) for v in was],
+        _torch_of(h1), _torch_of(wb), _torch_of(bb), _torch_of(wc),
+        _torch_of(g))
+    got = [*got[0], *got[1], *got[2:]]
+    c, na, nb = w["c"], w["na"], w["nb"]
+    shapes = [(M, c)] * k + [(c, na)] * k + [(na,), (na, nb), (nb,),
+                                             (nb, n_out), (n_out,)]
+    assert [tuple(t.shape) for t in got] == shapes
+    for i, (t, r) in enumerate(zip(got, ref)):
+        r = np.asarray(r, np.float32).reshape(t.shape)
+        assert t.dtype == torch.float32, i
+        np.testing.assert_allclose(t.numpy(), r, rtol=0,
+                                   atol=_head_bar(r, jnp.float32),
+                                   err_msg=str(i))
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("k", [1, 4])
 def test_nin_head_function_matches_jax_vjp(nh_interpret, dtype, k):
