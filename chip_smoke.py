@@ -856,13 +856,16 @@ K3_BF16_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 4133)] + [
 # fp32 K3's extra cases (M, k, Nc, widths): ragged row counts for the FMA
 # kernels' 128-row tiles, C 3 and 99 (rows off 16-byte boundaries: 4-byte
 # pieces; dx chunks straddling branches), Na at MAX_NA, Nb 200 / Nc 40
-# (three passes over Nb, three groups of Nc), the narrow widths, and C, Na,
-# Nb not multiples of 4 (every operand in 4-byte pieces)
+# (three passes over Nb, three groups of Nc), the narrow widths, C, Na, Nb
+# not multiples of 4 (every operand in 4-byte pieces), and M at the weight
+# grads' split boundaries whose splits are not multiples of (b)'s 32-row
+# stage: one split of 4,095 rows, 2,049 + 2,048, 3 x 2,731, 64 of 4,097
 K3_FP32_CASES = [(m, 4, 10, {}) for m in (1, 63, 65, 127, 129, 4133)] + [
     (1000, 4, 10, dict(c=3)), (1000, 4, 10, dict(c=99)),
     (1000, 4, 10, dict(na=512)), (1000, 4, 40, dict(nb=200)),
     (1000, 4, 3, dict(c=40, na=72, nb=24)), (1000, 4, 9, dict(c=16, na=32, nb=16)),
-    (1000, 4, 3, dict(c=5, na=70, nb=30))]
+    (1000, 4, 3, dict(c=5, na=70, nb=30))] + [
+    (m, 4, 10, {}) for m in (4095, 4097, 8193, 262_145)]
 
 
 def training_kernels_vs_twins(torch, calls, report):

@@ -12,7 +12,8 @@ into its launches, in bf16.
 
 ``--fp32`` does the same for the fp32 FMA kernels, and builds copies of
 ``csrc/nin_head_bwd.cu`` for the design's variants (``F32_VARIANTS``:
-textual edits of the source; "this" is the source as it stands). It prints
+textual edits of the source, of (a)'s launches and of (b)'s; "this" is the
+source as it stands). It prints
 each fp32 kernel's registers and spills from each build log, holds every
 copy against the twin (``chip_smoke.k3_error``'s fp32 bar) and against the
 committed kernel's bits, and times the copies in turns (forward order, then
@@ -44,7 +45,7 @@ from ssdn_tpu_torch.kernels import nin_head as K2
 K = 4
 CASES = (("K3 step", 1_572_864, 10), ("K3 ragged", 1_572_851, 9))
 SOURCE = os.path.join(_build.CSRC, "nin_head_bwd.cu")
-FMA_KERNELS = ("bwd_rows_fma_kernel", "bwd_dx_fma_kernel")
+FMA_KERNELS = ("bwd_rows_fma_kernel", "bwd_dx_fma_kernel", "wgrad_fma_kernel")
 
 # name: textual edits (old, new) of csrc/nin_head_bwd.cu; each old occurs once
 F32_VARIANTS = {
@@ -57,6 +58,16 @@ F32_VARIANTS = {
     # C 96 one branch per chunk) instead of 128 (8 x 8, chunks straddle
     # branches)
     "dx_chunk96": [("constexpr int DX_NCH = 128;", "constexpr int DX_NCH = 96;")],
+    # (b): a 3-stage ring, not 2; the FMA loop unrolled by 8 or by the
+    # whole 32-row stage, not 16; one block per SM (up to 255 registers), not
+    # two (128); the work items dealt round robin (block b takes b, b +
+    # gridDim.x, ...), not claimed in order from a counter
+    "wgrad_stages3": [("constexpr int WF_STAGES = 2;", "constexpr int WF_STAGES = 3;")],
+    "wgrad_unroll8": [("constexpr int WF_UNROLL = 16;", "constexpr int WF_UNROLL = 8;")],
+    "wgrad_unroll32": [("constexpr int WF_UNROLL = 16;", "constexpr int WF_UNROLL = 32;")],
+    "wgrad_one_block": [("constexpr int WF_BLOCKS = 2;", "constexpr int WF_BLOCKS = 1;")],
+    "wgrad_round_robin": [("claimed[round & 1] = gridDim.x + atomicAdd(g.next, 1);",
+                           "claimed[round & 1] = item + gridDim.x;")],
 }
 
 

@@ -26,10 +26,11 @@
 //      dpre1, writes dx_i, and writes h2, dpre2 and dpre1 (in T) to a
 //      workspace for the weight grads (fp32: two launches, (a1) and (a2)).
 //  (b) weight-grad partials: every weight grad is A^T B over the M rows.
-//      Each block owns one output tile of one product and one of S fixed
-//      row ranges (splits) and writes fp32 partial sums [S][...]. The bias
-//      grads are column sums in the same pass (dbc reads the fp32 g, as the
-//      TPU kernel sums it). One launch covers all products.
+//      Each block (fp32: each work item a persistent block takes) owns one
+//      output tile of one product and one of S fixed row ranges (splits)
+//      and writes fp32 partial sums [S][...]. The bias grads are column
+//      sums in the same pass (dbc reads the fp32 g, as the TPU kernel sums
+//      it). One launch covers all products.
 //  (c) reduce_splits: the sum over the S splits, in split order.
 //
 // No float atomics and a split count fixed by M (the caller's bwd_splits):
@@ -103,17 +104,39 @@
 //    over Na, dh2 over Nc, dh1 over Nb, dx over Na, each one ascending fmaf
 //    chain), so the bits match it. The rings' depths, the A layouts and the
 //    unrolls were settled on the H100 by k3_probe.py (PERF.md section 6).
-//    (b) 64 x 64 tiles, 4 x 4 outputs per thread, the bias grads as a row
-//    of ones appended to A.
+//    (b) wgrad_fma_kernel: 0.583 TFLOP per batch-384 step, 8.70 ms at 67
+//    TFLOP/s, against about 8.5 GB of operands (2.5 ms): operations bound
+//    it. A [m][p] and B [m][q] are staged as they lie, so nothing is
+//    transposed. The k branches' dWa_i are one product, [lrelu x_0 | .. |
+//    lrelu x_{k-1}]^T dpre1 (k C x Na: 9 tiles of 128 x 128 at the model's
+//    widths, straddling branches; a column's branch is three compares);
+//    dWb = h1^T dpre2 in 128 x 96 tiles (8 x 6 per thread); dWc = h2^T g in
+//    128 x 16 (a column per thread). A product's bias sums (dba, dbb, dbc:
+//    B's column sums, g_lp being g in fp32) are one more output row, one
+//    thread per column of the tile that holds row 0, and the rows at and
+//    past it move down one: the flat layout, with no padded tile. Two
+//    persistent blocks per SM (256 threads, 128 registers each) take the
+//    (tile, split) work items in order, dWa's first (the longest), each
+//    claiming its next item from a counter the launcher zeroes, so that
+//    the short items fill the tail; an item's 32-row stages of A and B go
+//    through a 2-stage cp.async ring; lrelu(x) is applied once per stage in
+//    shared memory, each thread on the pieces it staged; 8 x 8 register
+//    micro-tiles are fed by LDS.128. L2 streams 19.4 GB per step, from 43.7
+//    in the first kernel's 64 x 64 tiles. Every output is one ascending
+//    fmaf chain over its split's rows from +0.0 (a bias sum adds b, which
+//    is fmaf(1, b, acc)) and the zero rows past a split's end add exact
+//    zeros: the first kernel's bits.
 //
 // Left for later: wgmma and TMA, fusing (b) into (a) and dropping the
-// workspace.
+// workspace. The ring depth, unroll, blocks per SM and the branch tiling of
+// (b) were measured on the H100 by k3_probe.py (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "tc_bf16.cuh"
 
@@ -125,24 +148,7 @@ constexpr int THREADS = 256;
 constexpr int MAX_BRANCHES = 4;
 constexpr int MAX_DEVICES = 64;
 
-constexpr int WT = 64;        // (b): output tile WT x WT
-constexpr int WR = 32;        // (b): rows staged per step
 constexpr int MAX_JOBS = MAX_BRANCHES + 3;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-// Round an fp32 value to T and back (identity for fp32).
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : slope * v;
@@ -792,111 +798,244 @@ bwd_dx_fma_kernel(DxArgs a) {
   }
 }
 
-// ------------------------- (b) weight-grad partials -------------------------
+// ------------------ fp32 (b): weight-grad partials on the FMA pipes ------------------
 
-// One product out[p, q] = sum_m A[m, p] * B[m, q] over the M rows, A (M, P)
-// and B (M, Q) row-major; with `ones`, row P of the output is sum_m B[m, q]
-// (the bias grad).
-struct Job {
-  const void* a;
-  const void* b;
-  int P, Q;
-  int ones;      // append a row of ones to A
-  int a_lrelu;   // A is lrelu(x) rounded to T (the branch inputs)
-  int b_f32;     // B is fp32 (g) ...
-  int b_round;   // ... rounded to T (g_lp) or not (the fp32 g for dbc)
-  long long out;  // offset of this product in the flat output
-  int tiles_q;    // tiles along Q
-  int tile0;      // first linear tile of this job
+// Geometry (kernels/nin_head.py's k3_plan has the same numbers): output
+// tiles of 128 rows (p) by 128, 96 or 16 columns (q), by the product's Q;
+// a split's rows in (a)'s slices of R_KS, staged by (a)'s stage_b through
+// a ring of WF_STAGES, A [m][p] and B [m][q] as they lie in memory, both
+// rows WF_LD floats; R_THREADS threads, WF_BLOCKS blocks per SM. The k
+// branches' dWa_i are one product, [lrelu x_0 | .. | lrelu x_{k-1}]^T
+// dpre1, whose row tiles straddle branches.
+constexpr int WF_STAGES = 2;
+constexpr int WF_BLOCKS = 2;
+constexpr int WF_UNROLL = 16;  // the FMA loop's K unroll
+constexpr int WF_TP = 128;  // tile rows
+constexpr int WF_LD = 128;
+constexpr int WF_STAGE = 2 * R_KS * WF_LD;         // floats: A, then B
+// bytes: the ring and two claimed item numbers
+constexpr int WF_SMEM = 4 * WF_STAGES * WF_STAGE + 16;
+constexpr int WF_MAX_JOBS = MAX_BRANCHES + 2;
+
+// One product out[p, q] = sum_m A[m, p] B[m, q] over a split's rows, with
+// the column sums of B as output row `bias` (rows at and past it move down
+// one; -1: no sums). A (M x P) is P / lda blocks of lda columns side by
+// side (the branches), each row-major; B (M x Q) row-major.
+struct WfJob {
+  const float* a[MAX_BRANCHES];
+  const float* b;
+  int lda, P, Q;
+  int w;  // tile columns
+  int tiles_p, tiles_q;
+  int bias;
+  int lrelu;         // A is lrelu(x), applied once per stage
+  int vec_a, vec_b;  // 16-byte pieces (width a multiple of 4, 16-byte
+                     // boundaries), else 4-byte pieces
+  long long out;     // offset of the product in the flat output
+  int item0;         // first work item; items run split-major, tile-minor
 };
 
-struct GradArgs {
-  Job job[MAX_JOBS];
-  int n_jobs;
-  int M, S;
+struct WfArgs {
+  WfJob job[WF_MAX_JOBS];
+  int n_jobs, n_items, M;
   long long chunk;  // rows per split
   long long total;  // elements of the flat output
   float* partial;   // [S][total]
+  int* next;        // items claimed after the first gridDim.x, zeroed
   float slope;
 };
 
-template <typename T>
-__device__ __forceinline__ float load_a(const Job& j, long long m, int p,
-                                        float slope) {
-  if (p == j.P) return 1.f;  // the row of ones
-  const float v = to_f32(static_cast<const T*>(j.a)[m * j.P + p]);
-  return j.a_lrelu ? round_to<T>(lrelu(v, slope)) : v;
-}
+// A work item: tile (pt, q0) of one product over one split's rows [m0, m1)
+struct WfItem {
+  int job, split, pt, p0, pn, q0, qn, m0, m1;
+};
 
-template <typename T>
-__device__ __forceinline__ float load_b(const Job& j, long long m, int q) {
-  if (j.b_f32) {
-    const float v = static_cast<const float*>(j.b)[m * j.Q + q];
-    return j.b_round ? round_to<T>(v) : v;
-  }
-  return to_f32(static_cast<const T*>(j.b)[m * j.Q + q]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) wgrad_partial_kernel(GradArgs g) {
-  __shared__ float as[WR][WT];
-  __shared__ float bs[WR][WT];
+__device__ __forceinline__ WfItem wf_item(const WfArgs& g, int item) {
+  WfItem it;
   int ji = 0;
-  while (ji + 1 < g.n_jobs && (int)blockIdx.x >= g.job[ji + 1].tile0) ++ji;
-  const Job& j = g.job[ji];
-  const int t = blockIdx.x - j.tile0;
-  const int p0 = (t / j.tiles_q) * WT;
-  const int q0 = (t % j.tiles_q) * WT;
-  const int split = blockIdx.y;
-  const long long m_begin = split * g.chunk;
-  const long long m_end = min((long long)g.M, m_begin + g.chunk);
-  const int prow = j.P + j.ones;  // output rows of this product
+  while (ji + 1 < g.n_jobs && item >= g.job[ji + 1].item0) ++ji;
+  const WfJob& j = g.job[ji];
+  const int per = j.tiles_p * j.tiles_q, t = item - j.item0;
+  it.job = ji;
+  it.split = t / per;
+  const int r = t - it.split * per;
+  it.pt = r / j.tiles_q;
+  it.p0 = it.pt * WF_TP;
+  it.pn = min(WF_TP, j.P - it.p0);
+  it.q0 = (r - it.pt * j.tiles_q) * j.w;
+  it.qn = min(j.w, j.Q - it.q0);
+  it.m0 = (int)min((long long)g.M, it.split * g.chunk);
+  it.m1 = (int)min((long long)g.M, it.split * g.chunk + g.chunk);
+  return it;
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // 4 x 4 outputs per thread
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+// stage_b<WF_LD>'s pieces per thread: e = t + i R_THREADS, row e / 32,
+// columns 4 (e % 32)..
+constexpr int WF_PIECES = R_KS * (WF_LD / 4) / R_THREADS;
 
-  for (long long mb = m_begin; mb < m_end; mb += WR) {
-    // coalesced along the columns
-    for (int e = tid; e < WR * WT; e += THREADS) {
-      const int rr = e / WT;
-      const int cc = e - rr * WT;
-      const long long m = mb + rr;
-      const bool in_m = m < m_end;
-      as[rr][cc] = (in_m && p0 + cc < prow)
-                       ? load_a<T>(j, m, p0 + cc, g.slope) : 0.f;
-      bs[rr][cc] = (in_m && q0 + cc < j.Q) ? load_b<T>(j, m, q0 + cc) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < WR; ++rr) {
-      float av[4], bv[4];
+// lrelu over the pieces of an A slice this thread staged (its own copies
+// have landed; the barrier after it publishes them)
+__device__ __forceinline__ void wf_lrelu(float* sa, float slope) {
+  constexpr int Q = WF_LD / 4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[rr][ty + 16 * i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) bv[jj] = bs[rr][tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
-    }
-    __syncthreads();
+  for (int i = 0; i < WF_PIECES; ++i) {
+    const int e = threadIdx.x + i * R_THREADS, r = e / Q;
+    float4* p = reinterpret_cast<float4*>(sa + r * WF_LD + (e - r * Q) * 4);
+    float4 v = *p;
+    v.x = lrelu(v.x, slope);
+    v.y = lrelu(v.y, slope);
+    v.z = lrelu(v.z, slope);
+    v.w = lrelu(v.w, slope);
+    *p = v;
   }
-  float* out = g.partial + split * g.total + j.out;
+}
+
+// Thread (ty, tx) holds rows wf_row(ty, i) (8 of the 128-row tile) and
+// columns wf_col(tx, j) (8 of 128, 6 of 96, 1 of 16) of its tile. A
+// quarter-warp shares ty and holds 8 consecutive tx, so every shared read
+// is a broadcast or contiguous.
+constexpr int WF_NI = 8;
+template <int W>
+constexpr int wf_nj = W == 16 ? 1 : 4 + (W - 64) / 16;
+__device__ __forceinline__ int wf_row(int ty, int i) {
+  return i < 4 ? 4 * ty + i : 64 + 4 * ty + (i - 4);
+}
+template <int W>
+__device__ __forceinline__ int wf_col(int tx, int j) {
+  if constexpr (W == 16) return tx;
+  return j < 4 ? 4 * tx + j : 64 + (W - 64) / 16 * tx + (j - 4);
+}
+
+// N consecutive floats (an LDS.128, .64 or .32)
+template <int N>
+__device__ __forceinline__ void wf_lds(float* v, const float* p) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// acc[i][j] += sum_kk A[kk][row i] B[kk][column j] over a stage's R_KS
+// rows: per row kk, this thread's A values and B values in two reads each
+// (W 16: one of B), then NI x NJ FMAs. Each acc[i][j] is one fmaf chain in
+// ascending m. Unrolled by U.
+template <int W, int U>
+__device__ __forceinline__ void wf_fma(float (&acc)[WF_NI][wf_nj<W>],
+                                       const float* A, const float* B, int ty,
+                                       int tx) {
+  constexpr int NI = WF_NI, NJ = wf_nj<W>;
+  static_assert(R_KS % U == 0, "the unroll divides a stage");
+  const float* a = A + 4 * ty;
+  const float* a2 = A + 64 + 4 * ty;
+  const float* b = B + (W == 16 ? tx : 4 * tx);
+  const float* b2 = B + (W == 16 ? 0 : 64 + (W - 64) / 16 * tx);
+#pragma unroll 1
+  for (int k0 = 0; k0 < R_KS; k0 += U)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty + 16 * i;
-    if (p >= prow) continue;
+    for (int kk = k0; kk < k0 + U; ++kk) {
+      float av[NI], bv[NJ];
+      wf_lds<4>(av, a + kk * WF_LD);
+      wf_lds<NI - 4>(av + 4, a2 + kk * WF_LD);
+      if constexpr (W == 16) {
+        wf_lds<1>(bv, b + kk * WF_LD);
+      } else {
+        wf_lds<4>(bv, b + kk * WF_LD);
+        wf_lds<NJ - 4>(bv + 4, b2 + kk * WF_LD);
+      }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int q = q0 + tx + 16 * jj;
-      if (q < j.Q) out[(long long)p * j.Q + q] = acc[i][jj];
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+}
+
+// (b): persistent blocks take the work items in order: block b first item
+// b, then the next unclaimed one (a counter in device memory, zeroed before
+// the launch), so the longest items go first and the short ones fill the
+// tail. Each item runs its own ring: first stages, then per step the wait,
+// the barrier, the next stage's loads and the FMAs.
+__global__ void __launch_bounds__(R_THREADS, WF_BLOCKS)
+wgrad_fma_kernel(const __grid_constant__ WfArgs g) {
+  extern __shared__ float4 smem_wf[];
+  float* sm = reinterpret_cast<float*>(smem_wf);
+  int* claimed = reinterpret_cast<int*>(sm + WF_STAGES * WF_STAGE);  // [2]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+
+  int item = blockIdx.x;
+  for (int round = 0; item < g.n_items; ++round) {
+    const WfItem it = wf_item(g, item);
+    const WfJob& j = g.job[it.job];
+    const int steps = it.m0 < it.m1 ? (it.m1 - it.m0 + R_KS - 1) / R_KS : 0;
+    // B's column sums: one thread per column of the tile that holds row 0
+    const bool bias = j.bias >= 0 && it.pt == 0 && tid < j.w;
+    // step q's rows of A and B into stage q % WF_STAGES
+    auto stage = [&](int q) {
+      float* sa = sm + (q % WF_STAGES) * WF_STAGE;
+      const int mb = it.m0 + q * R_KS;
+      stage_b<WF_LD>(sa, mb, it.m1, it.pn, j.vec_a, j.a[0], [&](int m, int c) {
+        const int p = it.p0 + c, br = branch_of(p, j.lda);
+        return pick(j.a, br) + (size_t)m * j.lda + (p - br * j.lda);
+      });
+      stage_b<WF_LD>(sa + R_KS * WF_LD, mb, it.m1, it.qn, j.vec_b, j.b,
+                     [&](int m, int c) {
+                       return j.b + (size_t)m * j.Q + it.q0 + c;
+                     });
+    };
+    auto tile = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+      float acc[WF_NI][wf_nj<W>] = {};
+      float bsum = 0.f;
+      for (int q = 0; q < WF_STAGES - 1; ++q) {
+        if (q < steps) stage(q);
+        cp_async_commit();
+      }
+      for (int q = 0; q < steps; ++q) {
+        float* sa = sm + (q % WF_STAGES) * WF_STAGE;
+        const float* sb = sa + R_KS * WF_LD;
+        cp_async_wait<WF_STAGES - 2>();  // this thread's pieces of step q
+        if (j.lrelu) wf_lrelu(sa, g.slope);
+        __syncthreads();  // step q is whole; step q - 1's stage is free
+        if (q + WF_STAGES - 1 < steps) stage(q + WF_STAGES - 1);
+        cp_async_commit();
+        wf_fma<W, WF_UNROLL>(acc, sa, sb, ty, tx);
+        if (bias) {
+#pragma unroll 8
+          for (int kk = 0; kk < R_KS; ++kk) bsum += sb[kk * WF_LD + tid];
+        }
+      }
+      float* out = g.partial + it.split * g.total + j.out;
+#pragma unroll
+      for (int i = 0; i < WF_NI; ++i) {
+        const int r = wf_row(ty, i);
+        if (r >= it.pn) continue;
+        const int p = it.p0 + r;
+        float* row = out + (long long)(p + (j.bias >= 0 && p >= j.bias)) * j.Q;
+#pragma unroll
+        for (int jj = 0; jj < wf_nj<W>; ++jj) {
+          const int c = wf_col<W>(tx, jj);
+          if (c < it.qn) row[it.q0 + c] = acc[i][jj];
+        }
+      }
+      if (bias && tid < it.qn) out[(long long)j.bias * j.Q + it.q0 + tid] = bsum;
+    };
+    using std::integral_constant;
+    if (j.w == 16)
+      tile(integral_constant<int, 16>{});
+    else if (j.w == 96)
+      tile(integral_constant<int, 96>{});
+    else
+      tile(integral_constant<int, 128>{});
+    // the next item, published by the barrier, which also frees the ring;
+    // two slots, so a claim never overwrites one still being read
+    if (tid == 0) claimed[round & 1] = gridDim.x + atomicAdd(g.next, 1);
+    __syncthreads();
+    item = claimed[round & 1];
   }
 }
 
@@ -1446,13 +1585,16 @@ wgrad_tc_kernel(TcGradArgs g) {
   }
 }
 
-// fp32: (a1), (a2), (b), (c). As nin_head.cu's launchers, the row
+// fp32: (a1), (a2), (b), (c). As nin_head.cu's launchers, the FMA
 // kernels' attributes are set, and the device's SM count read, on a
-// device's first launch; their grid is min(tiles, SMs), persistent blocks.
-int launch_f32(const RowsArgs& ra, const DxArgs& da, GradArgs& ga, float* dw,
-               cudaStream_t stream) {
+// device's first launch; their grids are min(tiles, SMs) and min(work items,
+// WF_BLOCKS x SMs), persistent blocks.
+int launch_f32(const RowsArgs& ra, const DxArgs& da, const WfArgs& ga, int S,
+               float* dw, cudaStream_t stream) {
   static_assert(RW_SMEM <= SMEM_LIMIT && DX_SMEM <= SMEM_LIMIT,
                 "fp32 K3 (a) exceeds a block's shared memory");
+  static_assert(WF_BLOCKS * (WF_SMEM + 1024) <= 228 * 1024,
+                "fp32 K3 (b)'s blocks exceed an SM's shared memory");
   static std::atomic<int> sms_of[MAX_DEVICES];  // 0: not set up yet
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1460,10 +1602,11 @@ int launch_f32(const RowsArgs& ra, const DxArgs& da, GradArgs& ga, float* dw,
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   int sms = sms_of[dev].load(std::memory_order_relaxed);
   if (sms == 0) {
-    const void* kernels[2] = {(const void*)bwd_rows_fma_kernel,
-                              (const void*)bwd_dx_fma_kernel};
-    const int smem[2] = {RW_SMEM, DX_SMEM};
-    for (int i = 0; i < 2; ++i) {
+    const void* kernels[3] = {(const void*)bwd_rows_fma_kernel,
+                              (const void*)bwd_dx_fma_kernel,
+                              (const void*)wgrad_fma_kernel};
+    const int smem[3] = {RW_SMEM, DX_SMEM, WF_SMEM};
+    for (int i = 0; i < 3; ++i) {
       err = cudaFuncSetAttribute(kernels[i],
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem[i]);
@@ -1486,28 +1629,45 @@ int launch_f32(const RowsArgs& ra, const DxArgs& da, GradArgs& ga, float* dw,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const Job& last = ga.job[ga.n_jobs - 1];
-  const int wtiles = last.tile0 + ((last.P + last.ones + WT - 1) / WT) * last.tiles_q;
-  wgrad_partial_kernel<float><<<dim3(wtiles, ga.S), THREADS, 0, stream>>>(ga);
+  const int wgrid = ga.n_items < WF_BLOCKS * sms ? ga.n_items : WF_BLOCKS * sms;
+  err = cudaMemsetAsync(ga.next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  wgrad_fma_kernel<<<wgrid, R_THREADS, WF_SMEM, stream>>>(ga);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   reduce_splits_kernel<<<(unsigned)((ga.total + THREADS - 1) / THREADS),
-                         THREADS, 0, stream>>>(ga.partial, dw, ga.total,
-                                               ga.S);
+                         THREADS, 0, stream>>>(ga.partial, dw, ga.total, S);
   return (int)cudaGetLastError();
 }
 
-void add_job(GradArgs& ga, long long& out, int& tile, const void* a,
-             const void* b, int P, int Q, int ones, int a_lrelu, int b_f32,
-             int b_round) {
-  Job& j = ga.job[ga.n_jobs++];
-  j.a = a; j.b = b; j.P = P; j.Q = Q; j.ones = ones; j.a_lrelu = a_lrelu;
-  j.b_f32 = b_f32; j.b_round = b_round; j.out = out;
-  j.tiles_q = (Q + WT - 1) / WT;
-  j.tile0 = tile;
-  tile += ((P + ones + WT - 1) / WT) * j.tiles_q;
-  out += (long long)(P + ones) * Q;
+// Appends fp32 (b)'s product of A's `blocks` blocks of lda columns (a[i])
+// and B (M x Q) to ga, out at `out` with B's column sums as row `bias` (or
+// -1); its S x tiles work items follow the earlier products'.
+void add_wf_job(WfArgs& ga, int S, const void* const* a, int blocks, int lda,
+                const void* b, int Q, int lrelu, int bias, long long out) {
+  auto on16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  WfJob& j = ga.job[ga.n_jobs++];
+  j.vec_a = lda % 4 == 0;
+  for (int i = 0; i < MAX_BRANCHES; ++i) {
+    j.a[i] = static_cast<const float*>(a[i < blocks ? i : 0]);
+    if (i < blocks) j.vec_a = j.vec_a && on16(a[i]);
+  }
+  j.b = static_cast<const float*>(b);
+  j.lda = lda;
+  j.P = blocks * lda;
+  j.Q = Q;
+  j.w = Q <= 16 ? 16 : Q <= 96 ? 96 : 128;
+  j.tiles_p = (j.P + WF_TP - 1) / WF_TP;
+  j.tiles_q = (Q + j.w - 1) / j.w;
+  j.bias = bias;
+  j.lrelu = lrelu;
+  j.vec_b = Q % 4 == 0 && on16(b);
+  j.out = out;
+  j.item0 = ga.n_items;
+  ga.n_items += S * j.tiles_p * j.tiles_q;
 }
 
 int launch_tc(const TcRowArgs& ra, TcGradArgs& ga, int S, float* dw,
@@ -1565,7 +1725,8 @@ void add_tc_job(TcGradArgs& ga, int& tile, const void* a, const void* b,
 // [dWa_0 (C, Na) | dba (Na) | dWa_1 .. dWa_{k-1} | dWb (Na, Nb) | dbb (Nb) |
 //  dWc (Nb, Nc) | dbc (Nc)]. ws is a workspace of M * (2 Nb + Na) elements
 // of x's type, in bf16 M * (2 Nb + Na + Nc rounded up to 16); partial one
-// of S * (number of dw elements) floats. S >= 1
+// of S * (number of dw elements) floats, in fp32 one more (a counter for
+// (b)'s work items). S >= 1
 // splits of the rows (a function of M alone, chosen by the caller).
 // fp32 (is_bf16 0): wa_i are the transposed Wa_i, (Na, C), and wbt the
 // transposed Wb, (Nb, Na), beside wb itself. bf16: wa_i are the Wa_i as
@@ -1678,22 +1839,21 @@ extern "C" int nin_head_bwd(
   da.slope = slope;
   da.vec_d1 = ra.vec_d1;
 
-  GradArgs ga;
-  ga.n_jobs = 0;
-  long long out = 0;
-  int tile = 0;
-  // dWa_0 with dba as its ones row, then the other branches
-  add_job(ga, out, tile, x0, ra.dpre1ws, C, Na, 1, 1, 0, 0);
-  for (int i = 1; i < k; ++i)
-    add_job(ga, out, tile, xs[i], ra.dpre1ws, C, Na, 0, 1, 0, 0);
-  add_job(ga, out, tile, h1, ra.dpre2ws, Na, Nb, 1, 0, 0, 0);  // dWb, dbb
-  add_job(ga, out, tile, ra.h2ws, g, Nb, Nc, 0, 0, 1, 1);      // dWc (g_lp)
-  add_job(ga, out, tile, nullptr, g, 0, Nc, 1, 0, 1, 0);       // dbc (fp32 g)
+  // (b): dWa_i = lrelu(x_i)^T dpre1 with dba, dWb = h1^T dpre2 with dbb,
+  // dWc = h2^T g with dbc (g_lp is g itself in fp32)
+  WfArgs ga;
+  ga.n_jobs = ga.n_items = 0;
+  // [dWa_0 | dba | dWa_1 ..]: dba is the row after C
+  add_wf_job(ga, S, xs, k, C, ra.dpre1ws, Na, 1, C, 0);
+  const void* h1s[1] = {h1};
+  const void* h2s[1] = {ra.h2ws};
+  add_wf_job(ga, S, h1s, 1, Na, ra.dpre2ws, Nb, 0, Na, dwb);
+  add_wf_job(ga, S, h2s, 1, Nb, g, Nc, 0, Nb, dwc);
   ga.M = M;
-  ga.S = S;
   ga.chunk = ((long long)M + S - 1) / S;
-  ga.total = out;
+  ga.total = dbc + Nc;
   ga.partial = static_cast<float*>(partial);
+  ga.next = reinterpret_cast<int*>(ga.partial + S * ga.total);
   ga.slope = slope;
-  return launch_f32(ra, da, ga, dwf, s);
+  return launch_f32(ra, da, ga, S, dwf, s);
 }

@@ -64,7 +64,6 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # K3's launch geometry; csrc/nin_head_bwd.cu uses the same numbers.
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-_TILE_F32 = 64           # (b) fp32 output tile, square
 _ROWS_TC = 64            # (a) rows per block, bf16 tensor-core kernel
 _WA_CHUNK = 32           # (a) Wa_i columns per stage of its ring
 _WA_STAGES = 4           # (a) the ring's stages
@@ -92,6 +91,16 @@ _K3F_ROWS_SMEM = 4 * (_K3F_STAGES * (_K3F_ROWS * (_K3F_SLICE + 4) + _K3F_B)
                       + _K3F_PASS * _K3F_LD
                       + 2 * _K3F_ROWS * (_K3F_GROUP + 4)
                       + _K3F_GROUP * _K3F_PASS) + 2 * _K3F_ROWS * MAX_NA // 8
+# fp32 (b) on the FMA pipes, one launch: output tiles of 128 rows by 128, 96
+# or 16 columns (by the product's Q: over 96, over 16, else), a split's rows
+# in stages of 32 through a 2-stage ring (A [m][p] and B [m][q] slices of 128
+# floats a row; 16 bytes more for two claimed item numbers), 256 threads,
+# two blocks per SM taking the (tile, split) work items in order. The k
+# branches' dWa_i are one product whose row tiles straddle branches.
+_K3W_TP, _K3W_ROWS, _K3W_STAGES, _K3W_THREADS, _K3W_LD = 128, 32, 2, 256, 128
+_K3W_BLOCKS = 2
+_H100_SMS = 132          # the H100 SXM's SMs: (b)'s fp32 grid is at most 2 x 132
+_K3W_SMEM = 4 * _K3W_STAGES * 2 * _K3W_ROWS * _K3W_LD + 16
 
 # K2's launch geometry; csrc/nin_head.cu uses the same numbers. bf16 (tensor
 # cores): 8 warps of 16 rows each, one block per SM, Na in chunks of 32
@@ -212,13 +221,56 @@ class K3RowLaunch:
 
 
 @dataclasses.dataclass(frozen=True)
+class K3WgradLaunch:
+    """fp32 K3 (b), the weight-grad partials: its products, each (name, P,
+    Q, tile rows, tile columns, tiles) with its bias sums as one more output
+    row ("dWa": the k branches' [lrelu x_0 | ..]^T dpre1, k C x Na, whose
+    row tiles straddle branches; "dWb": h1^T dpre2; "dWc": h2^T g), rows per
+    stage and the ring's stages, threads, blocks per SM, shared bytes per
+    block, the work items (tiles x splits), the persistent blocks that
+    take them in order (min(items, blocks per SM x SMs), counted with the
+    H100 SXM's 132 SMs; the launcher reads the device's count) and the
+    bytes the items stream from L2 per call (each reads its tile's columns
+    of A and of B over its split's rows)."""
+    products: tuple
+    stage_rows: int
+    stages: int
+    threads: int
+    blocks_per_sm: int
+    smem: int
+    items: int
+    blocks: int
+    l2_bytes: int
+
+
+def _k3_wgrad_launch(m: int, c: int, na: int, nb: int, nc: int, k: int,
+                     splits: int) -> K3WgradLaunch:
+    """fp32 K3 (b)'s launch for M rows in ``splits`` row splits, k branches
+    of C channels and the head's widths Na, Nb, Nc (``csrc/nin_head_bwd.cu``
+    computes the same tiles)."""
+    products, tiles, per_row = [], 0, 0
+    for name, p, q in (("dWa", k * c, na), ("dWb", na, nb), ("dWc", nb, nc)):
+        w = 16 if q <= 16 else 96 if q <= 96 else 128
+        tp_, tq = _cdiv(p, _K3W_TP), _cdiv(q, w)
+        products.append((name, p, q, _K3W_TP, w, tp_ * tq))
+        tiles += tp_ * tq
+        per_row += tq * p + tp_ * q
+    items = tiles * splits
+    return K3WgradLaunch(tuple(products), _K3W_ROWS, _K3W_STAGES, _K3W_THREADS,
+                         _K3W_BLOCKS, _K3W_SMEM, items,
+                         min(items, _K3W_BLOCKS * _H100_SMS), 4 * m * per_row)
+
+
+@dataclasses.dataclass(frozen=True)
 class K3Plan:
     """What one K3 launch needs: (a) rows per tile, row tiles and shared
     bytes per block (fp32: the larger of its two launches, described in
-    ``row_launches``), (b) output tiles (blocks = tiles x splits) and
-    shared bytes, the workspace (elements of x's dtype: h2, dpre2, dpre1
-    and, in bf16, g rounded to bf16 and padded to 16 columns), the flat
-    fp32 weight-grad sizes and the partial sums (floats)."""
+    ``row_launches``), (b) output tiles and shared bytes (bf16: one block
+    per tile and split; fp32: the tiles x splits work items of
+    ``wgrad_launch``), the workspace (elements of x's dtype: h2, dpre2,
+    dpre1 and, in bf16, g rounded to bf16 and padded to 16 columns), the
+    flat fp32 weight-grad sizes and the partial sums (floats; in fp32 one
+    more, (b)'s work-item counter)."""
     splits: int
     rows_per_block: int
     row_blocks: int
@@ -229,9 +281,14 @@ class K3Plan:
     dw_sizes: tuple
     partial: int
     row_launches: tuple = ()
+    wgrad_launch: K3WgradLaunch | None = None
 
     @property
     def wgrad_blocks(self) -> int:
+        """(b)'s blocks launched: one per tile and split (bf16), or fp32's
+        persistent blocks (``wgrad_launch.blocks``)."""
+        if self.wgrad_launch is not None:
+            return self.wgrad_launch.blocks
         return self.wgrad_tiles * self.splits
 
 
@@ -261,7 +318,7 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                  + _cdiv(nb, _TILE_P) * _cdiv(nc, _TILE_Q) + 1)
         wsmem = _WG_STAGES * 2 * _STAGE_ROWS * (_TILE_P + _TILE_Q + 2 * _SKEW)
         ws = m * (2 * nb + na + ncp)
-        launches = ()
+        launches, wlaunch = (), None
     else:
         rows = _K3F_ROWS
         n_tiles = _cdiv(m, rows)
@@ -275,17 +332,17 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                         1, _K3F_THREADS, 1, _K3F_DX_SMEM,
                         4 * n_tiles * k * c * na))
         smem = max(launch.smem for launch in launches)
-        t = lambda p, q: _cdiv(p, _TILE_F32) * _cdiv(q, _TILE_F32)
-        # dWa_0 + dba, dWa_i, dWb + dbb, dWc, dbc
-        tiles = (t(c + 1, na) + (k - 1) * t(c, na) + t(na + 1, nb)
-                 + t(nb, nc) + t(1, nc))
-        wsmem = 2 * 4 * 32 * _TILE_F32
+        wlaunch = _k3_wgrad_launch(m, c, na, nb, nc, k, splits)
+        tiles = sum(prod[-1] for prod in wlaunch.products)
+        wsmem = wlaunch.smem
         ws = m * (2 * nb + na)
     return K3Plan(splits=splits, rows_per_block=rows,
                   row_blocks=_cdiv(m, rows), rows_smem=smem,
                   wgrad_tiles=tiles, wgrad_smem=wsmem,
                   workspace=ws, dw_sizes=sizes,
-                  partial=splits * sum(sizes), row_launches=launches)
+                  partial=splits * sum(sizes) + (wlaunch is not None),
+                  row_launches=launches,
+                  wgrad_launch=wlaunch)
 
 
 def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:

@@ -493,6 +493,21 @@ def test_k3_fp32_odd_widths_match_twin(cuda, widths):
                      torch.float32)
 
 
+@pytest.mark.parametrize("m", [4095, 4097, 8193, 262_145])
+def test_k3_fp32_split_boundaries_match_twin(cuda, m):
+    """(b) at M on the weight grads' split boundaries, where a split is not
+    a multiple of its 32-row stage: one split of 4,095 rows, 2,049 + 2,048,
+    3 x 2,731 and 64 x 4,097 (the last 4,034); a tile's work items end in a
+    part-filled stage, and the next item's first stages load meanwhile.
+    Two launches give the same bits."""
+    args = _k3_operands(m + 3, m, 4, 10, torch.float32)
+    _k3_matches_twin(args, torch.float32)
+    a, b = K2.nin_head_bwd(*args), K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*a[0], *a[1], *a[2:]], [*b[0], *b[1], *b[2:]]):
+        assert torch.equal(x, y)
+
+
 def test_k3_fp32_is_bitwise_repeatable(cuda):
     """The fp32 FMA kernels at M = 262,144 (2,048 row tiles over persistent
     blocks, 64 splits of the weight grads): two launches give the same

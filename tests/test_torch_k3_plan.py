@@ -26,7 +26,15 @@ def _plan(m, dtype, c, na, nb, nc, k):
 def test_shared_memory_fits_one_block(dtype, na):
     plan = _plan(1_572_864, dtype, **dict(MODEL, na=na))
     assert plan.rows_smem <= K2.SMEM_LIMIT
-    assert plan.wgrad_smem <= K2.SMEM_LIMIT // 3  # (b): two blocks per SM
+    if dtype == BF16:
+        assert plan.wgrad_smem <= K2.SMEM_LIMIT // 3  # (b): two blocks per SM
+    else:
+        # (b): two blocks per SM in the H100 SM's 228 KB, 1 KB reserved per
+        # block; 2 stages of 32 rows x (128 + 128) floats and two claimed
+        # item numbers, fixed
+        launch = plan.wgrad_launch
+        assert launch.blocks_per_sm * (plan.wgrad_smem + 1024) <= 228 * 1024
+        assert plan.wgrad_smem == launch.smem == 2 * 32 * 256 * 4 + 16
     if dtype == F32:
         # (a1), the larger launch: the ring 3 x (128 x (32 + 4) + 32 x 128),
         # dpre2 96 x 132, g's group 2 x 128 x (16 + 4), Wc^T's group 16 x 96
@@ -78,8 +86,11 @@ def test_tiles_at_model_and_narrow_widths():
     # and one block of dbc's column sums
     assert _plan(4133, BF16, **MODEL).wgrad_tiles == 4 * 3 + 3 + 1 + 1
     assert _plan(4133, BF16, **MODEL).wgrad_blocks == 17 * 2
-    # fp32 (b): 64 x 64 tiles, bias rows appended to dWa_0 and dWb, and dbc
-    assert _plan(4133, F32, **MODEL).wgrad_tiles == 12 + 3 * 12 + 14 + 2 + 1
+    # fp32 (b): the four dWa_i as one 384 x 384 product in 128 x 128 tiles,
+    # dWb (384 x 96) in 128 x 96, dWc (96 x 10) in one 128 x 16; the bias
+    # sums ride in the tiles of row 0
+    assert _plan(4133, F32, **MODEL).wgrad_tiles == 9 + 3 + 1
+    assert _plan(4133, F32, **MODEL).wgrad_blocks == 13 * 2
     narrow = _plan(1000, BF16, **NARROW)
     assert narrow.wgrad_tiles == 4 + 1 + 1 + 1
     # C 40, Na 72, Nb 24, Nc 3 pad to 48, 80, 32, 16 (dpre2/dx: 48 + 8)
@@ -148,7 +159,7 @@ def test_fp32_row_tiles_at_ragged_m(m):
     assert all(launch.row_tiles == -(-m // 128)
                for launch in plan.row_launches)
     # (b)'s tiles and the workspace do not depend on (a)'s geometry
-    assert plan.wgrad_tiles == 12 + 3 * 12 + 14 + 2 + 1
+    assert plan.wgrad_tiles == 9 + 3 + 1
     assert plan.workspace == m * (2 * 96 + 384)
 
 
@@ -198,6 +209,117 @@ def test_fp32_takes_every_width_the_parent_took(widths):
     off = torch.zeros(17)[1:]  # 4 bytes past an allocation's start
     K2._check_k3_launch(plan, (off,), widths["c"], widths["na"],
                         widths["nb"], F32)
+
+
+# ------------------- fp32 (b): the weight-grad partials -------------------
+
+WGRAD_PRODUCTS = {
+    # (name, P, Q, tile rows, tile columns, tiles)
+    "model": (("dWa", 384, 384, 128, 128, 9), ("dWb", 384, 96, 128, 96, 3),
+              ("dWc", 96, 10, 128, 16, 1)),
+    "max-na": (("dWa", 384, 512, 128, 128, 12), ("dWb", 512, 96, 128, 96, 4),
+               ("dWc", 96, 10, 128, 16, 1)),
+    "c40-na72-nb24-nc3": (("dWa", 160, 72, 128, 96, 2),
+                          ("dWb", 72, 24, 128, 96, 1),
+                          ("dWc", 24, 3, 128, 16, 1)),
+    "c16-na32-nb16-nc9": (("dWa", 64, 32, 128, 96, 1),
+                          ("dWb", 32, 16, 128, 16, 1),
+                          ("dWc", 16, 9, 128, 16, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FP32_WIDTHS))
+def test_fp32_wgrad_launch_at_model_and_narrow_widths(name):
+    """(b) is one launch: the k branches' dWa_i as one product (k C x Na)
+    whose 128-row tiles straddle branches, dWb and dWc; tile columns 128,
+    96 or 16 by the product's Q; 32-row stages through a 2-stage ring, 256
+    threads, two blocks per SM; the bias sums as a row of the tile that
+    holds row 0, so no product pads P by one."""
+    plan = _plan(4133, F32, **FP32_WIDTHS[name])
+    launch = plan.wgrad_launch
+    assert launch.products == WGRAD_PRODUCTS[name]
+    assert (launch.stage_rows, launch.stages, launch.threads,
+            launch.blocks_per_sm) == (32, 2, 256, 2)
+    assert plan.wgrad_tiles == sum(p[-1] for p in launch.products)
+    assert launch.items == plan.wgrad_tiles * 2
+    assert plan.wgrad_blocks == launch.blocks == launch.items  # < 2 x 132
+    assert plan.partial == 2 * sum(plan.dw_sizes) + 1  # and the item counter
+    assert _plan(4133, BF16, **FP32_WIDTHS[name]).wgrad_launch is None
+
+
+@pytest.mark.parametrize("m,splits,chunk,last", [
+    (1, 1, 1, 1), (63, 1, 63, 63), (4095, 1, 4095, 4095),
+    (4097, 2, 2049, 2048), (262_145, 64, 4097, 4034),
+    (1_572_851, 64, 24_576, 24_563)])
+def test_fp32_wgrad_items_at_ragged_m(m, splits, chunk, last):
+    """Work items are (tile, split) pairs, bwd_splits(M) splits of
+    ceil(M / S) rows each, the last one shorter: no split is empty, and a
+    split's last 32-row stage is part-filled where its rows are not a
+    multiple of 32 (zero past its end); the items' rows cover M once."""
+    plan = _plan(m, F32, **MODEL)
+    assert plan.splits == splits == K2.bwd_splits(m)
+    assert plan.wgrad_launch.items == 13 * splits
+    assert plan.wgrad_blocks == min(13 * splits, 2 * 132)
+    assert -(-m // splits) == chunk
+    rows = [min(m, (s + 1) * chunk) - s * chunk for s in range(splits)]
+    assert min(rows) >= 1 and sum(rows) == m and rows[-1] == last
+    # a ragged M does not change the tiles, only the items' rows
+    assert plan.wgrad_launch.products == WGRAD_PRODUCTS["model"]
+
+
+@pytest.mark.parametrize("m,items,blocks,bf16_blocks", [
+    (4133, 26, 26, 34), (1_572_864, 832, 264, 1088)])
+def test_fp32_wgrad_grid_is_the_blocks_launched(m, items, blocks, bf16_blocks):
+    """``wgrad_blocks`` is the grid the launcher starts: in fp32 min(work
+    items, 2 blocks per SM x the H100 SXM's 132 SMs), persistent blocks
+    that claim the items past the first grid's; in bf16 one block per tile
+    and split."""
+    launch = _plan(m, F32, **MODEL).wgrad_launch
+    assert (launch.items, launch.blocks) == (items, blocks)
+    assert _plan(m, F32, **MODEL).wgrad_blocks == blocks
+    assert _plan(m, BF16, **MODEL).wgrad_blocks == bf16_blocks
+
+
+@pytest.mark.parametrize("widths", [MODEL, dict(MODEL, na=K2.MAX_NA),
+                                    dict(MODEL, nb=200, nc=40)],
+                         ids=["model", "max-na", "nb200-nc40"])
+def test_fp32_wgrad_shared_memory_fits(widths):
+    """(b)'s shared bytes are fixed (2 stages of 32 x 128 floats of A and of
+    B, and two claimed item numbers), whatever the widths: the ring fits
+    one H100 block, and two beside each other on one SM."""
+    launch = _plan(1_572_864, F32, **widths).wgrad_launch
+    assert launch.smem == 65_552 <= K2.SMEM_LIMIT
+    assert launch.blocks_per_sm == 2
+    assert 2 * (launch.smem + 1024) <= 228 * 1024
+
+
+def _old_wgrad_l2_bytes(m, c, na, nb, nc, k):
+    """The bytes the first fp32 kernel's 64 x 64 tiles streamed per call:
+    each tile read its 64 columns of A and of B (the bias rows, a row of
+    ones appended to A, read nothing)."""
+    per_row = 0
+    for p, ones, q, n in ((c, 1, na, 1), (c, 0, na, k - 1), (na, 1, nb, 1),
+                          (nb, 0, nc, 1), (0, 1, nc, 1)):
+        per_row += n * (-(-q // 64) * p + -(-(p + ones) // 64) * q)
+    return 4 * m * per_row
+
+
+@pytest.mark.parametrize("m,new_gb,old_gb", [(1_572_864, 19.39, 43.68),
+                                             (393_216, 4.85, 10.92)])
+def test_fp32_wgrad_l2_stream_below_the_old_tiling(m, new_gb, old_gb):
+    """Per row, (b) streams dWa's A (384 columns) once per 128-column tile
+    of Na and dpre1 once per 128-row tile of k C (3 + 3), dWb's h1 once and
+    dpre2 three times, dWc's h2 and g once: 3,082 floats, 19.39 GB per
+    batch-384 step, from 6,942 (43.68 GB) in 64 x 64 tiles."""
+    launch = _plan(m, F32, **MODEL).wgrad_launch
+    assert launch.l2_bytes == 4 * m * (3 * 384 + 3 * 384 + 384 + 3 * 96 + 96 + 10)
+    old = _old_wgrad_l2_bytes(m, **MODEL)
+    assert old == 4 * m * 6942
+    assert (round(launch.l2_bytes / 1e9, 2), round(old / 1e9, 2)) == (
+        new_gb, old_gb)
+    for widths in FP32_WIDTHS.values():
+        assert (_plan(m, F32, **widths).wgrad_launch.l2_bytes
+                < _old_wgrad_l2_bytes(m, **widths))
 
 
 @pytest.mark.parametrize("name", list(k3_probe.F32_VARIANTS))
