@@ -19,8 +19,9 @@ which fails the run (non-zero exit) on any error:
    random ragged shapes and narrow widths (K2 / K2' and K3 in both dtypes
    at M 1 to 4,133 and C/Na/Nb 40/72/24, K2 / K2' also 16/32/16, fp32 K2 /
    K2' and K3 also at Na 512, C 3 and 99, Nb 200 / Nc 40 and K3 at 16/32/16;
-   bf16 K1 at Cin 1, 3, 97, 99, 144, W 2, 4, 7 and BSD68's 512x352; K3 and
-   bf16 K1 each launched twice and compared bit for bit);
+   K1 in both dtypes at Cin 1, 3, 97, 99, 144, W 2, 4, 7 and BSD68's
+   512x352, fp32 K1 also at Cin 512 and at a tile staged in passes; K3 and
+   K1 each launched twice and compared bit for bit);
    then times K2', K3 and K1 (bf16 and fp32, from each model's step)
    per training step against their bounds, twins and library yardsticks;
 4. the serving path: two bundled pretrained models (``gauss25_rgb`` in
@@ -40,7 +41,8 @@ which fails the run (non-zero exit) on any error:
    card, forward, backward, Adam): finite, the loss falls, and K1 / K2' /
    K3 launch 12 / 1 / 1 times per step in their arms; then the reference
    objective's fp32 training step (``gauss25_rgb``, batch 384) timed over
-   10 steps in the lax and head arms (K2' / K3 fp32 once per step);
+   10 steps in the lax, head and conv arms (K2' / K3 fp32 once per step in
+   the head arm, fp32 K1 12 times per step in the conv arm);
 6. times each arm per 768x512 request and per training step (patches/s),
    profiles one request and one step per arm (device busy and idle share),
    and each kernel per request against its bound, its twin and a library
@@ -81,7 +83,7 @@ TRAIN_STEPS = 30     # steps per arm on the training path
 TRAIN_WARM = 5       # steps before the patches/s clock starts
 # the reference objective's fp32 training step (gauss25_rgb): timed steps
 # after warm-ups, per arm
-REF_ARMS = ("lax", "head_pallas")
+REF_ARMS = ("lax", "head_pallas", "conv_pallas")
 REF_STEPS, REF_WARM = 10, 3
 
 
@@ -392,7 +394,8 @@ def kernels_vs_twins(torch, calls, report):
                              shape=f"M={m} k={k} n_out={nc}",
                              dtype=dname(torch, dt), max_abs_err=err[0],
                              max_rel_err=err[1], ok=err[2]))
-    rows += k1_bf16_rows(torch, g)
+    rows += k1_odd_rows(torch, g, torch.bfloat16, K1_BF16_CASES)
+    rows += k1_odd_rows(torch, g, torch.float32, K1_FP32_CASES)
     # bf16 on the tensor cores: ragged row tiles and narrow widths (the
     # generic instantiation); each launched twice (same bits) and beside
     # K2' (the same kernel: the same out bits)
@@ -800,27 +803,39 @@ K1_BF16_CASES = [(2, 1, 512, 768, 48), (2, 3, 352, 512, 48),
                  (2, 144, 176, 256, 96), (2, 144, 11, 16, 96),
                  (1536, 48, 2, 2, 48), (1536, 96, 4, 4, 96), (2, 48, 5, 7, 96),
                  (4, 1, 9, 7, 48), (2, 96, 352, 512, 96), (2, 48, 512, 352, 48)]
+# fp32 K1: the same, and Cin 512 (its halo'd tile staged in passes over
+# Cin, re-staged per tap) and Cin 144 at W 1 (a tile of one column whose
+# 130 x 3 slots need two passes)
+K1_FP32_CASES = K1_BF16_CASES + [(2, 512, 64, 64, 96), (2, 512, 11, 7, 48),
+                                 (4, 144, 40, 1, 96)]
 
 
-def k1_bf16_rows(torch, g):
-    """bf16 K1 at ``K1_BF16_CASES`` on random operands: against the twin,
+def same_bits(torch, a, b):
+    """Equal bit patterns (torch.equal calls -0.0 equal to +0.0)."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(it), b.view(it))
+
+
+def k1_odd_rows(torch, g, dtype, cases):
+    """K1 at ``cases`` on random operands in ``dtype``: against the twin,
     and launched twice for the same bits."""
     from ssdn_tpu_torch.kernels import shifted_conv as K1
 
     rows = []
-    for n, cin, h, w_, cout in K1_BF16_CASES:
+    for n, cin, h, w_, cout in cases:
         x = torch.randn(n, cin, h, w_, device=DEVICE, generator=g)
-        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        x = x.to(dtype).contiguous(memory_format=torch.channels_last)
         w = torch.randn(cout, cin, 3, 3, device=DEVICE, generator=g) * (
             2 / (9 * cin)) ** 0.5
         b = torch.randn(cout, device=DEVICE, generator=g) * 0.1
         got = K1.shifted_conv3x3_bias_act(x, w, b)
-        same = torch.equal(got, K1.shifted_conv3x3_bias_act(x, w, b))
+        same = same_bits(torch, got, K1.shifted_conv3x3_bias_act(x, w, b))
         err = k1_error(torch, got, K1.torch_reference(x, w, b))
         rows.append(dict(kernel="k1", model="random", call=0,
-                         shape=f"{(n, cin, h, w_)}->{cout}", dtype="bfloat16",
-                         max_abs_err=err[0], max_rel_err=err[1],
-                         bitwise_repeatable=same, ok=err[2] and same))
+                         shape=f"{(n, cin, h, w_)}->{cout}",
+                         dtype=dname(torch, dtype), max_abs_err=err[0],
+                         max_rel_err=err[1], bitwise_repeatable=same,
+                         ok=err[2] and same))
     return rows
 
 
@@ -1214,8 +1229,9 @@ def train_reference_fp32(torch, models, report):
     """The reference objective's fp32 training step, timed: the
     ``gauss25_rgb`` weights (trained under ``objective="reference"``, whose
     "auto" compute dtype is float32) at batch 384 through
-    ``make_train_step``, REF_WARM warm-ups then REF_STEPS steps in the lax
-    and head arms (the head arm runs K2' and K3 in fp32 once per step).
+    ``make_train_step``, REF_WARM warm-ups then REF_STEPS steps in each of
+    REF_ARMS (the head arm runs K2' and K3 in fp32 once per step, the conv
+    arm fp32 K1 K1_PER_TRUNK times per step).
     Counts are read just around each arm; the loss and the weights must
     stay finite."""
     from ssdn_tpu_torch.train import make_train_step, state_from_params
@@ -1245,7 +1261,8 @@ def train_reference_fp32(torch, models, report):
               f"{r['patches_per_s']:.1f} patches/s" for r in rows))
     n = REF_WARM + REF_STEPS
     want = {"lax": dict(k1=0, k2=0, k2_save_h1=0, k3=0),
-            "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n)}
+            "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n),
+            "conv_pallas": dict(k1=K1_PER_TRUNK * n, k2=0, k2_save_h1=0, k3=0)}
     for arm, counts in launches.items():
         check(counts == want[arm], f"reference {arm}: launches {counts}, "
                                    f"expected {want[arm]}")
@@ -1471,8 +1488,10 @@ def main(argv=None) -> int:
     for entry in kernel_line:
         if entry["name"] == "shifted_conv3x3_bias_act":
             entry["launches"] += train_launches["k1"]
-            entry["launches_by_path"] = {"serving": launches["k1"],
-                                         "training": train_launches["k1"]}
+            entry["launches_by_path"] = {
+                "serving": launches["k1"], "training": train_launches["k1"],
+                "reference_training_fp32": report["reference_train_launches"][
+                    "conv_pallas"]["k1"]}
             for key, dt in (("per_train_step", "bfloat16"),
                             ("per_train_step_fp32", "float32")):
                 t = next(v for (k, _), v in train_timing.items()

@@ -2,8 +2,8 @@
 """K1 (the shifted 3x3 conv + bias + LeakyReLU) alone on one NVIDIA GPU,
 layer by layer.
 
-    python3 k1_probe.py [--reps N] [--fp32] [--host] [--against DIR]
-                        [--out PATH]
+    python3 k1_probe.py [--reps N] [--fp32] [--variants] [--host]
+                        [--against DIR] [--window DIR] [--out PATH]
 
 On random operands (made on the card from a seed) at the 12 layer shapes
 of a batch-384 training step (the four rotations folded into batch 1536,
@@ -12,15 +12,24 @@ of a batch-384 training step (the four rotations folded into batch 1536,
 conv + LeakyReLU (the library yardstick, timed only), the bound, the
 achieved TFLOP/s and the error against the plain twin, then the totals per
 step and per request: which shapes lose time. bf16 always; ``--fp32``
-adds the fp32 parity kernel. ``--host`` prints the host time of one call
+adds the fp32 parity kernel and prints its registers and spills (ptxas).
+``--variants`` times the fp32 kernel's design choices (``F32_VARIANTS``:
+edited copies of ``csrc/shifted_conv.cu`` and plan overrides) against
+this build over a training step's 12 layers, in turns, each held to this
+build's bit patterns.
+``--host`` prints the host time of one call
 (K1's wrapper, its weight packing, cuDNN's conv + LeakyReLU) at a small
 layer, where the host and not the kernel sets the time. ``--against DIR``
 builds the fp32 kernel of another checkout (``DIR/ssdn_tpu_torch/csrc/
 shifted_conv.cu``, e.g. the parent commit unpacked with ``git archive``)
-beside this one, and holds this tree's fp32 K1 to its bits on every layer
-shape, timing the two in turns. ``--out`` writes the rows as JSON. It
-imports no JAX; ``chip_smoke.py`` runs the full checks on the real
-operands.
+beside this one, and holds this tree's fp32 K1 to its bit patterns on
+every layer shape (-0.0 is not +0.0: the backward's mask is the output's
+sign bit), timing the two in turns. ``--window DIR`` times the reference
+objective's fp32 training step in the conv arm (``chip_smoke.
+train_reference_fp32``, fp32 K1 12 times a step) on DIR's package and on
+this tree's, one process each, in turns (DIR, this, this, DIR). ``--out``
+writes the rows as JSON. It imports no JAX; ``chip_smoke.py`` runs the
+full checks on the real operands.
 """
 
 import argparse
@@ -34,10 +43,35 @@ import time
 import torch
 
 import chip_smoke as cs
+import k2_probe
 from ssdn_tpu_torch.kernels import _build
 from ssdn_tpu_torch.kernels import shifted_conv as K1
 
 ENC, DEC = 48, 96  # the flagship's widths
+SOURCE = os.path.join(_build.CSRC, "shifted_conv.cu")
+
+# fp32 K1's design choices: (edits of csrc/shifted_conv.cu, overrides of
+# kernels/shifted_conv.py's plan constants). The same bits in every one.
+_UNROLL = "#pragma unroll 2\n      for (; k < stop; k += 4) {"
+F32_VARIANTS = {
+    # one block per SM: no 128-register cap
+    "one_block": ([("constexpr int F_MINB = 2;", "constexpr int F_MINB = 1;")],
+                  {}),
+    # a 2-stage weight ring (one stage's loads in flight, not two)
+    "stages2": ([("constexpr int F_STAGES = 3;", "constexpr int F_STAGES = 2;")],
+                {"_F32_STAGES": 2}),
+    # 16 or 64 weight rows per ring stage (a barrier per 4 or 16 k' steps)
+    "kr16": ([], {"_F32_KR": 16}),
+    "kr64": ([], {"_F32_KR": 64}),
+    # the k' loop unrolled by 1 or 4 (2 shipped)
+    "unroll1": ([(_UNROLL, _UNROLL.replace("unroll 2", "unroll 1"))], {}),
+    "unroll4": ([(_UNROLL, _UNROLL.replace("unroll 2", "unroll 4"))], {}),
+    # tiles 32 or 8 columns wide (16 shipped): 4 x 32 (6 x 34 halo slots)
+    # or 16 x 8 (18 x 10) at 128 pixels
+    "tile32": ([("constexpr int F_MAX_TW = 16;", "constexpr int F_MAX_TW = 32;")],
+               {"_F32_MAX_TW": 32}),
+    "tile8": ([], {"_F32_MAX_TW": 8}),
+}
 
 
 def trunk_layers(n, h, w, cin=3):
@@ -112,35 +146,66 @@ def host_rows(shape=(2, 48, 16, 24, 48)):
 def other_fp32(tree):
     """The fp32 K1 of another checkout as a function (x, w, b) -> y: its
     ``csrc/shifted_conv.cu`` built into this tree's build directory. The
-    C entry point is ``shifted_conv3x3_f32``, or (before the bf16 kernel
-    had an entry point of its own) ``shifted_conv3x3_bias_act`` with
-    is_bf16 0."""
+    C entry point is ``shifted_conv3x3_f32_halo`` (given this tree's plan
+    and packed weights), or before that ``shifted_conv3x3_f32`` (the
+    (9*Cin, Cout) matrix), or (before the bf16 kernel had an entry point
+    of its own) ``shifted_conv3x3_bias_act`` with is_bf16 0."""
     src = os.path.join(tree, "ssdn_tpu_torch", "csrc", "shifted_conv.cu")
     lib_path = os.path.join(_build.BUILD_DIR, "against_shifted_conv.so")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src],
                    check=True, stdout=subprocess.DEVNULL)
     lib = ctypes.CDLL(lib_path)
-    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
-    if hasattr(lib, "shifted_conv3x3_f32"):
-        fn, extra = lib.shifted_conv3x3_f32, ()
+    halo = hasattr(lib, "shifted_conv3x3_f32_halo")
+    if halo:
+        fn, extra = lib.shifted_conv3x3_f32_halo, ()
+        fn.argtypes = K1._SIGNATURES["shifted_conv3x3_f32_halo"]
     else:
-        fn, extra = lib.shifted_conv3x3_bias_act, (0,)
-        args.append(ctypes.c_int)
-    fn.argtypes, fn.restype = args + [ctypes.c_void_p], ctypes.c_int
+        args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        if hasattr(lib, "shifted_conv3x3_f32"):
+            fn, extra = lib.shifted_conv3x3_f32, ()
+        else:
+            fn, extra = lib.shifted_conv3x3_bias_act, (0,)
+            args.append(ctypes.c_int)
+        fn.argtypes = args + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
     def run(x, w, b):
         n, cin, h, wd = x.shape
-        wk = w.permute(2, 3, 1, 0).contiguous()
-        y = torch.empty((n, w.shape[0], h, wd), dtype=x.dtype, device=x.device,
+        cout = w.shape[0]
+        y = torch.empty((n, cout, h, wd), dtype=x.dtype, device=x.device,
                         memory_format=torch.channels_last)
-        err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), n, h,
-                 wd, cin, w.shape[0], 0.1, *extra,
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if halo:
+            plan = K1.k1_plan(n, h, wd, cin, cout, x.dtype)
+            wk = K1.pack_weights_f32(w, plan)
+            err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     n, h, wd, cin, cout, plan.cols, plan.tile_w, plan.tile_h,
+                     plan.cc, plan.kr, 0.1, stream)
+        else:
+            wk = w.permute(2, 3, 1, 0).contiguous()
+            err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     n, h, wd, cin, cout, 0.1, *extra, stream)
         if err:
             raise RuntimeError(f"the other tree's K1 failed: CUDA error {err}")
         return y
     return run
+
+
+def fma_registers(log):
+    """ptxas's registers and spills of each fp32 FMA kernel instantiation
+    in a build log (``-Xptxas=-v``): [(kernel, "Used .. registers ..",
+    ".. spill stores, .. spill loads")]."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Function properties" in line and "conv_fma_kernel" in line:
+            name = line.split("for ")[-1].strip()
+            cols = name.split("conv_fma_kernelILi")[-1].split("E")[0]
+            out.append((f"conv_fma_kernel<{cols}>",
+                        lines[i + 2].split(": ")[-1].strip(),
+                        lines[i + 1].strip()))
+    return out
 
 
 def against_rows(tree, reps):
@@ -152,7 +217,8 @@ def against_rows(tree, reps):
         t_other = t_this = 0.0
         for i, (name, shape) in enumerate(layers):
             x, wt, b = operands(shape, torch.float32, i)
-            same = torch.equal(other(x, wt, b), K1.shifted_conv3x3_bias_act(x, wt, b))
+            same = cs.same_bits(torch, other(x, wt, b),
+                                K1.shifted_conv3x3_bias_act(x, wt, b))
             same_all &= same
             if not same:
                 print(f"  fp32 bits differ from {tree} at {name} {shape}")
@@ -167,16 +233,121 @@ def against_rows(tree, reps):
     return same_all
 
 
+def use(so, overrides):
+    """Make the wrapper launch K1 from library ``so`` with the plan's
+    constants overridden; returns the constants it replaced."""
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in K1._SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _build._libs["shifted_conv"] = lib
+    old = {k: getattr(K1, k) for k in overrides}
+    for k, v in overrides.items():
+        setattr(K1, k, v)
+    return old
+
+
+def variant_rows(reps):
+    """fp32 K1's design variants against this build over the 12 layers of
+    a training step: their registers and spills, bit patterns equal to
+    this build's on every layer, and the step's K1 time in turns (this and
+    the variants in order, then in reverse)."""
+    copies = {"this": [], **{n: e for n, (e, _) in F32_VARIANTS.items()}}
+    overrides = {"this": {}, **{n: o for n, (_, o) in F32_VARIANTS.items()}}
+    libs, logs = k2_probe.build_copies(copies, None, SOURCE)
+    for name in copies:
+        for kern, regs, spills in fma_registers(logs[name]):
+            print(f"  {name}: {kern} {regs}; {spills}")
+    layers = [operands(shape, torch.float32, i)
+              for i, (_, shape) in enumerate(PATHS["train step"])]
+    run = lambda: [K1.shifted_conv3x3_bias_act(*ops) for ops in layers]
+    times, same, ref = {v: [] for v in copies}, {}, None
+    try:
+        for order in (list(copies), list(copies)[::-1]):
+            for v in order:
+                old = use(libs[v], overrides[v])
+                try:
+                    outs = run()
+                    if ref is None:
+                        ref = outs
+                    same[v] = same.get(v, True) and all(
+                        cs.same_bits(torch, a, b) for a, b in zip(outs, ref))
+                    del outs
+                    times[v].append(cs.cuda_ms(torch, run, reps))
+                finally:
+                    for k, val in old.items():
+                        setattr(K1, k, val)
+    finally:
+        _build._libs.pop("shifted_conv", None)  # the next launch loads the real kernel
+    print("fp32 K1 variants, ms per training step (12 layers), in turns:")
+    for v in copies:
+        print(f"  {v:<10} {times[v][0]:8.3f} / {times[v][1]:8.3f}"
+              f"{'' if same[v] else '  BITS DIFFER'}")
+    return [dict(variant=v, ms=times[v], same_bits=same[v]) for v in copies]
+
+
+# one reference-window process: the tree's package first on the path, this
+# tree's chip_smoke loaded from its file; prints the row as JSON
+_WINDOW = """
+import importlib.util, json, sys
+sys.path.insert(0, {tree!r})
+import torch
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import ssdn_tpu_torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.REF_ARMS = ("conv_pallas",)
+models = {{"gauss25_rgb": cs.load_model("gauss25_rgb", "cuda")}}
+report = {{}}
+row = cs.train_reference_fp32(torch, models, report)[0]
+print("WINDOW " + json.dumps(dict(row, package=ssdn_tpu_torch.__file__,
+      launches=report["reference_train_launches"]["conv_pallas"])))
+"""
+
+
+def window_rows(tree):
+    """The conv arm's reference window on ``tree``'s package and this
+    tree's, one process each, in turns (other, this, this, other)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    smoke = os.path.join(here, "chip_smoke.py")
+    torch.cuda.empty_cache()  # the child processes need the card's memory
+    rows = []
+    for tag, root in (("other", tree), ("this", here), ("this", here),
+                      ("other", tree)):
+        run = subprocess.run(
+            [sys.executable, "-c", _WINDOW.format(tree=os.path.abspath(root),
+                                                  smoke=smoke)],
+            capture_output=True, text=True, cwd=here)
+        line = next((ln for ln in run.stdout.splitlines()
+                     if ln.startswith("WINDOW ")), None)
+        if run.returncode or line is None:
+            print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the {tag} tree's reference window failed")
+        row = dict(json.loads(line[len("WINDOW "):]), tree=tag)
+        rows.append(row)
+        print(f"  conv arm, fp32 reference step, {tag} ({row['package']}): "
+              f"{row['ms_per_step']:.2f} ms/step {row['patches_per_s']:.1f} "
+              f"patches/s, launches {row['launches']}")
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--fp32", action="store_true",
                    help="also time the fp32 parity kernel")
+    p.add_argument("--variants", action="store_true",
+                   help="time the fp32 kernel's design variants in turns")
     p.add_argument("--host", action="store_true",
                    help="print the host time of one call at a small layer")
     p.add_argument("--against", default=None, metavar="DIR",
                    help="hold fp32 K1 to the bits of another checkout's")
+    p.add_argument("--window", default=None, metavar="DIR",
+                   help="time the conv arm's fp32 reference step on DIR's "
+                        "package and this one's, in turns")
     p.add_argument("--out", default=None, help="write the rows as JSON")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -185,6 +356,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())
+    if args.fp32:
+        for kern, regs, spills in fma_registers(_build.build_log("shifted_conv")):
+            print(f"  {kern}: {regs}; {spills}")
     dtypes = [torch.bfloat16] + ([torch.float32] if args.fp32 else [])
     rows, ok = [], True
     for dtype in dtypes:
@@ -209,12 +383,20 @@ def main(argv=None) -> int:
         host_rows()
     if args.against:
         ok &= against_rows(args.against, args.reps)
+    variants = []
+    if args.variants:
+        with torch.no_grad():
+            variants = variant_rows(args.reps)
+        ok &= all(v["same_bits"] for v in variants)
+    windows = window_rows(args.window) if args.window else []
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(card=cs.card_line(), rows=rows), f, indent=1)
+            json.dump(dict(card=cs.card_line(), rows=rows, variants=variants,
+                           windows=windows), f, indent=1)
     if not ok:
         print("k1_probe: a layer is out of the twin's tolerance, or its fp32 "
-              "bits differ from the other tree's", file=sys.stderr)
+              "bits differ from the other tree's or a variant's",
+              file=sys.stderr)
         return 1
     return 0
 

@@ -11,18 +11,43 @@
 // NHWC (N, H, W, Cout) in x's type. There is no size-based fallback: every
 // shape the model produces, up to 768x512x144, runs here. Two kernels:
 //
-// fp32, the parity path (shifted_conv3x3_f32): w is (3, 3, Cin, Cout)
-// flattened to a (9*Cin, Cout) matrix, row k = (dh*3+dw)*Cin+ci. An
-// implicit GEMM with M = N*H*W output pixels, N = Cout and K = 9*Cin. Each
-// block owns a tile of 64 pixels x 48 output channels; it walks K in slices
-// of 32, gathering the input window into shared memory with the causal
-// padding taken by bounds checks (no padded copy exists) and the channel
-// loop bounds-checked (Cin may be 1 or 3), staging the matching weight
-// slice beside it, and accumulating in fp32 registers with plain FMAs (8
-// pixels x 3 channels per thread). The epilogue adds the bias, applies
-// LeakyReLU and rounds once. It runs on the fp32 FMA pipes (67 TFLOP/s
-// peak; TF32 would break the port's fp32 bars) and re-reads the input
-// window once per tap from L1/L2.
+// fp32, the parity path (shifted_conv3x3_f32_halo, conv_fma_kernel), on the
+// FMA pipes: true fp32 (a TF32 mma would break the port's fp32 bars). What
+// bounds it on the H100: operations. At the model's widths the work is
+// 2*9*Cin*Cout flops per pixel against 4*(Cin+Cout) bytes, far above the
+// 20 flop/byte ridge of the 67 TFLOP/s FMA peak: 1.76 TFLOP per batch-384
+// step (26.3 ms), 0.44 per 768x512 request (6.6 ms). So the design keeps
+// the FMA pipes fed from registers and spends as few issue slots as it can
+// on anything else:
+//  - One block covers up to 96 output channels (256 threads of 8 pixels x
+//    6 channels: 128 pixels x 96 for Cout > 48, 256 x 48 else), so the
+//    input is read once per block, not once per 48-column block.
+//  - A halo'd input tile is staged once for all nine taps by cp.async (16
+//    bytes where Cin % 4 == 0 and x is aligned, else 4; channels padded
+//    with zeros to cin4, a multiple of 4): an output tile of th rows x tw
+//    columns (tw = min(W, 16), th = pixels / tw, nearly square, so the halo
+//    costs 1.4x the tile at 8 x 16) takes rows r0-2 .. r0+th-1 and columns
+//    c0-1 .. c0+tw. Rows count over the whole batch (global row = n*H + r),
+//    so a tile may span images. Each pixel's slot holds its channels
+//    contiguous, so one LDS.128 gives four k' rows of one pixel and the
+//    tap's shift is a whole-slot offset: never misaligned, whatever dw.
+//  - Each thread computes an 8 x 6 register micro-tile: per four k' rows 8
+//    LDS.128 of pixels (broadcast within a quarter-warp) and 4 x (LDS.128 +
+//    LDS.64) of weights feed 192 FMAs. A source outside its image (the
+//    causal top rows, the edges, another image above) points at a zero row.
+//  - The weights, packed by the wrapper into (column blocks, 9*cin4, cols)
+//    zero-padded rows, stream in k' order through a 3-stage cp.async ring
+//    of kr rows (one barrier per stage). Two blocks share an SM where the
+//    tile allows (dec1b: 109,264 bytes), so one block's staging overlaps
+//    the other's products.
+//  - Every output is one ascending fmaf chain over k = (dh*3+dw)*Cin+ci
+//    from +0.0, then + bias and LeakyReLU: the first fp32 kernel's order,
+//    so the same bits (a padded channel adds fmaf(0, 0, acc) = acc; an
+//    out-of-image tap fmaf(+0, w, acc) = acc, as its zero fill did).
+//  - A Cin whose tile does not fit one block (Cin 256 and up; Cin 96-144
+//    at W 1-5) is staged in passes of cc channels, re-staged per tap, tap
+//    outer, so the chain keeps its order.
+// Left for later: a persistent schedule that prefetches the next tile.
 //
 // bf16, on the tensor cores (shifted_conv3x3_bf16): mma.sync m16n8k16 (bf16
 // in, fp32 accumulate), ldmatrix and cp.async (tc_bf16.cuh). What bounds it
@@ -75,123 +100,6 @@
 #include "tc_bf16.cuh"
 
 namespace {
-
-constexpr int BM = 64;   // output pixels per block
-constexpr int BN = 48;   // output channels per block
-constexpr int BK = 32;   // reduction slice of 9*Cin
-constexpr int THREADS = 128;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    shifted_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           const float* __restrict__ bias, T* __restrict__ y,
-                           int n_img, int H, int W, int Cin, int Cout,
-                           float slope) {
-  __shared__ float As[BK][BM + 1];  // +1: conflict-free column writes
-  __shared__ float Bs[BK][BN];
-  __shared__ int s_r[BM];
-  __shared__ int s_c[BM];
-
-  const long long M = (long long)n_img * H * W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-
-  if (tid < BM) {
-    const long long m = m0 + tid;
-    if (m < M) {
-      const int rc = (int)(m % ((long long)H * W));
-      s_r[tid] = rc / W;
-      s_c[tid] = rc % W;
-    } else {
-      s_r[tid] = -4;  // every tap row falls above the image: zeros
-      s_c[tid] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int K = 9 * Cin;
-  const int tm = tid / 16;  // compute: pixels tm + 8*i
-  const int tn = tid % 16;  // compute: channels tn + 16*j
-  const int lk = tid % BK;  // gather: this thread's k within the slice
-  const int lm = tid / BK;  // gather: pixels lm + 4*i
-
-  float acc[8][3];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + lk;
-    const bool kvalid = k < K;
-    int dh = 0, dw = 0, ci = 0;
-    if (kvalid) {
-      const int tap = k / Cin;
-      ci = k - tap * Cin;
-      dh = tap / 3;
-      dw = tap - dh * 3;
-    }
-#pragma unroll 4
-    for (int i = 0; i < BM / 4; ++i) {
-      const int p = lm + 4 * i;
-      const int rr = s_r[p] - 2 + dh;  // rows r-2 .. r: never below the image
-      const int cc = s_c[p] - 1 + dw;
-      float v = 0.f;
-      if (kvalid && rr >= 0 && cc >= 0 && cc < W) {
-        const long long src = m0 + p + (long long)(dh - 2) * W + (dw - 1);
-        v = to_f32(x[src * Cin + ci]);
-      }
-      As[lk][p] = v;
-    }
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int kk = e / BN;
-      const int nn = e - kk * BN;
-      const int kg = k0 + kk;
-      const int co = n0 + nn;
-      Bs[kk][nn] =
-          (kg < K && co < Cout) ? to_f32(w[(long long)kg * Cout + co]) : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[3];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[kk][tm + 8 * i];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) b[j] = Bs[kk][tn + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + tm + 8 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int co = n0 + tn + 16 * j;
-      if (co >= Cout) continue;
-      float v = acc[i][j] + bias[co];
-      v = v >= 0.f ? v : slope * v;
-      y[m * Cout + co] = from_f32<T>(v);
-    }
-  }
-}
 
 // --------------------------- bf16 on the tensor cores ---------------------------
 
@@ -444,21 +352,387 @@ int launch_tc(const ConvArgs& a, int col_blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// --------------------------- fp32 on the FMA pipes ---------------------------
+
+// Block geometry (kernels/shifted_conv.py's k1_plan has the same numbers):
+// F_THREADS threads, each owning F_PIX pixels x F_CH output channels; COLS
+// (48 or 96) output channels per block, so COLS / F_CH threads along the
+// channels and 8 * F_THREADS / (COLS / F_CH) pixels per block (256 or 128).
+constexpr int F_THREADS = 256;
+constexpr int F_MINB = 2;       // blocks per SM the registers are capped for
+constexpr int F_PIX = 8;
+constexpr int F_CH = 6;
+constexpr int F_STAGES = 3;     // the weight ring
+constexpr int F_MAX_TW = 16;    // tile columns
+
+// 4-byte cp.async (rows of Cin % 4 != 0 floats, or x off 16 bytes)
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(ssdn_tc::smem_u32(smem)), "l"(gmem) : "memory");
+}
+
+struct F32Args {
+  const float* x;  // (N*H*W, Cin)
+  const float* w;  // (col_blocks, 9 * cin4, COLS), zero past Cin and Cout
+  const float* b;  // (Cout,)
+  float* y;        // (N*H*W, Cout)
+  int NH, H, W, Cin, Cout;
+  int cin4;        // Cin rounded up to 4: the k' rows of a tap
+  int cc, passes;  // channels of the halo'd tile per pass, passes over cin4
+  int ldc;         // floats per tile slot
+  int kr, chunks;  // weight rows per ring stage; chunks of them per tile
+  int tw, th, col_tiles;
+  int vec_x, vec_y;  // x rows / y rows move in 16-byte pieces
+  float slope;
+};
+
+// floats per tile slot: cc, made an odd multiple of 4 so that the eight
+// slots a quarter-warp's LDS.128 can touch fall in distinct banks
+__host__ __device__ inline int f32_ldc(int cc) {
+  return cc % 8 == 0 ? cc + 4 : cc;
+}
+
+// Shared memory, in floats: the halo'd input tile ((th+2) x (tw+2) slots
+// of ldc), the weight ring (F_STAGES x kr x cols) and the zero row (ldc).
+struct F32Layout {
+  int ring, zero, total;
+};
+__host__ __device__ inline F32Layout f32_layout(int cols, int tw, int th,
+                                                int ldc, int kr) {
+  F32Layout L;
+  L.ring = (th + 2) * (tw + 2) * ldc;
+  L.zero = L.ring + F_STAGES * kr * cols;
+  L.total = L.zero + ldc;
+  return L;
+}
+
+// The k' rows (k' = tap * cin4 + ci) over which the staged tile is fixed:
+// with one pass, the single segment [0, 9 cin4); else segment s is
+// (tap s / passes, pass s % passes): one pass's channels of one tap.
+__host__ __device__ inline void f32_segment(const F32Args& a, int s,
+                                            int& start, int& len) {
+  if (a.passes == 1) {
+    start = 0;
+    len = 9 * a.cin4;
+    return;
+  }
+  const int tap = s / a.passes, p = s - tap * a.passes;
+  const int c = p * a.cc;
+  start = tap * a.cin4 + c;
+  len = a.cin4 - c < a.cc ? a.cin4 - c : a.cc;
+}
+
+// A ring stage: rows [row, row + kr) of segment seg (fewer at its end).
+struct F32Chunk {
+  int seg, row;
+};
+
+__device__ inline void f32_advance(const F32Args& a, F32Chunk& ck) {
+  int start, len;
+  f32_segment(a, ck.seg, start, len);
+  ck.row += a.kr;
+  if (ck.row >= len) {
+    ++ck.seg;
+    ck.row = 0;
+  }
+}
+
+// Thread (ty, tx) owns pixels ty + TY i of the tile (i < 8) and output
+// channels 4 tx .. 4 tx + 3 and C4 + 2 tx, C4 + 2 tx + 1 of the block's
+// COLS (C4 = 4 TX): one outer product per k' row from the pixels' values
+// (one LDS.128 of the tile gives a pixel's four k' rows) and two loads of
+// the weight row (LDS.128 + LDS.64). A quarter-warp shares ty and
+// holds 8 consecutive tx, so every shared read is a broadcast or 64-128
+// contiguous bytes.
+template <int COLS>
+__global__ void __launch_bounds__(F_THREADS, F_MINB)
+conv_fma_kernel(F32Args a) {
+  constexpr int TX = COLS / F_CH;     // 8 or 16
+  constexpr int TY = F_THREADS / TX;  // 32 or 16
+  constexpr int C4 = 4 * TX;
+  extern __shared__ float4 smem_f1[];
+  float* sm = reinterpret_cast<float*>(smem_f1);
+  const int tw = a.tw, th = a.th, tw2 = tw + 2, ldc = a.ldc;
+  const F32Layout L = f32_layout(COLS, tw, th, ldc, a.kr);
+  float* sT = sm;
+  float* sRing = sm + L.ring;
+  float* sZero = sm + L.zero;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = lane % TX, ty = warp * (32 / TX) + lane / TX;
+  const int rt = (int)blockIdx.x / a.col_tiles;
+  const int R0 = rt * th, c0 = ((int)blockIdx.x - rt * a.col_tiles) * tw;
+  const int n0 = (int)blockIdx.y * COLS;
+  const float* wblk = a.w + (size_t)blockIdx.y * 9 * a.cin4 * COLS;
+
+  for (int e = tid; e < ldc; e += F_THREADS) sZero[e] = 0.f;
+
+  // Pixel i: the slot of its tap (0, 0) source (low 16 bits) and a bit per
+  // tap (dh*3 + dw, from bit 16) whose source lies in its image. A source
+  // outside it (the causal top rows, the left and right edges, another
+  // image above) or a pixel past the tile, the rows or the width reads the
+  // zero row: an exact +0 product, as the first fp32 kernel's zero fill.
+  unsigned pix[F_PIX];
+#pragma unroll
+  for (int i = 0; i < F_PIX; ++i) {
+    const int p = ty + TY * i;
+    const int pr = p / tw, pc = p - pr * tw;
+    const int R = R0 + pr, c = c0 + pc;
+    unsigned taps = 0;
+    if (pr < th && R < a.NH && c < a.W) {
+      const int r = R % a.H;
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw)
+          if (r - 2 + dh >= 0 && c - 1 + dw >= 0 && c - 1 + dw < a.W)
+            taps |= 1u << (dh * 3 + dw);
+    }
+    pix[i] = (unsigned)(pr * tw2 + pc) | taps << 16;
+  }
+
+  // the tile's channels [pass cc, pass cc + cc) of rows R0-2 .. R0+th-1 and
+  // columns c0-1 .. c0+tw, one warp per slot; channels past Cin (up to
+  // cin4) are zero; slots outside the batch's rows or the width are never
+  // read and stay unset
+  auto stage_tile = [&](int pass) {
+    const int ch0 = pass * a.cc;
+    const int ccp = a.cin4 - ch0 < a.cc ? a.cin4 - ch0 : a.cc;
+    const int slots = (th + 2) * tw2;
+    for (int s = warp; s < slots; s += F_THREADS / 32) {
+      const int sr = s / tw2, sc = s - sr * tw2;
+      const int R = R0 - 2 + sr, c = c0 - 1 + sc;
+      if (R < 0 || R >= a.NH || c < 0 || c >= a.W) continue;
+      const float* src = a.x + ((long long)R * a.W + c) * a.Cin + ch0;
+      float* dst = sT + s * ldc;
+      if (a.vec_x) {
+        for (int g = lane; g < ccp / 4; g += 32)
+          ssdn_tc::cp_async16(dst + 4 * g, src + 4 * g);
+      } else {
+        for (int k = lane; k < ccp; k += 32) {
+          if (ch0 + k < a.Cin)
+            cp_async4(dst + k, src + k);
+          else
+            dst[k] = 0.f;
+        }
+      }
+    }
+  };
+  // ring stage `stg` <- the chunk's weight rows, contiguous in the packed
+  // (9 cin4, COLS) matrix of this column block
+  auto load_w = [&](const F32Chunk& ck, int stg) {
+    int start, len;
+    f32_segment(a, ck.seg, start, len);
+    const int rows = len - ck.row < a.kr ? len - ck.row : a.kr;
+    const float* src = wblk + (size_t)(start + ck.row) * COLS;
+    float* dst = sRing + stg * a.kr * COLS;
+    for (int e = tid; e < rows * (COLS / 4); e += F_THREADS)
+      ssdn_tc::cp_async16(dst + 4 * e, src + 4 * e);
+  };
+
+  float acc[F_PIX][F_CH];
+#pragma unroll
+  for (int i = 0; i < F_PIX; ++i)
+#pragma unroll
+    for (int j = 0; j < F_CH; ++j) acc[i][j] = 0.f;
+
+  F32Chunk ld = {0, 0}, cur = {0, 0};
+  if (a.passes == 1) stage_tile(0);
+#pragma unroll
+  for (int j = 0; j < F_STAGES - 1; ++j) {
+    if (j < a.chunks) {
+      load_w(ld, j);
+      f32_advance(a, ld);
+    }
+    ssdn_tc::cp_async_commit();  // group j: chunk j (group 0: the tile too)
+  }
+  for (int q = 0; q < a.chunks; ++q) {
+    ssdn_tc::cp_async_wait<F_STAGES - 2>();  // chunk q (and the tile)
+    __syncthreads();  // ... for every thread; chunk q - 1's stage is free
+    if (q + F_STAGES - 1 < a.chunks) {
+      load_w(ld, (q + F_STAGES - 1) % F_STAGES);
+      f32_advance(a, ld);
+    }
+    ssdn_tc::cp_async_commit();
+    int start, len;
+    f32_segment(a, cur.seg, start, len);
+    const int ch0 = a.passes == 1 ? 0 : (cur.seg % a.passes) * a.cc;
+    if (a.passes > 1 && cur.row == 0) {  // a new segment: its pass's tile
+      stage_tile(cur.seg % a.passes);
+      ssdn_tc::cp_async_commit();
+      ssdn_tc::cp_async_wait<0>();
+      __syncthreads();
+    }
+    int k = start + cur.row;
+    const int kend = k + (len - cur.row < a.kr ? len - cur.row : a.kr);
+    const float* wp = sRing + (q % F_STAGES) * a.kr * COLS;
+    while (k < kend) {  // one tap at a time: rows k .. stop
+      const int tap = k / a.cin4;
+      const int stop = (tap + 1) * a.cin4 < kend ? (tap + 1) * a.cin4 : kend;
+      const int dh = tap / 3, off = dh * tw2 + tap - dh * 3;
+      const int ci = k - tap * a.cin4 - ch0;
+      const float* ap[F_PIX];
+#pragma unroll
+      for (int i = 0; i < F_PIX; ++i)
+        ap[i] = ((pix[i] >> (16 + tap)) & 1u
+                     ? sT + ((int)(pix[i] & 0xffffu) + off) * ldc
+                     : sZero) + ci;
+#pragma unroll 2
+      for (; k < stop; k += 4) {
+        float4 av[F_PIX];
+#pragma unroll
+        for (int i = 0; i < F_PIX; ++i) {
+          av[i] = *reinterpret_cast<const float4*>(ap[i]);
+          ap[i] += 4;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(wp + kk * COLS + 4 * tx);
+          const float2 b2 =
+              *reinterpret_cast<const float2*>(wp + kk * COLS + C4 + 2 * tx);
+          const float bv[F_CH] = {b4.x, b4.y, b4.z, b4.w, b2.x, b2.y};
+#pragma unroll
+          for (int i = 0; i < F_PIX; ++i) {
+            const float xv = kk == 0   ? av[i].x
+                             : kk == 1 ? av[i].y
+                             : kk == 2 ? av[i].z
+                                       : av[i].w;
+#pragma unroll
+            for (int j = 0; j < F_CH; ++j)
+              acc[i][j] = fmaf(xv, bv[j], acc[i][j]);
+          }
+        }
+        wp += 4 * COLS;
+      }
+    }
+    f32_advance(a, cur);
+  }
+
+  // epilogue: bias + LeakyReLU, written straight from the registers (a
+  // warp's store covers two pixels' 256 or 128 contiguous bytes)
+  float bias[F_CH];
+#pragma unroll
+  for (int j = 0; j < F_CH; ++j) {
+    const int co = n0 + (j < 4 ? 4 * tx + j : C4 + 2 * tx + j - 4);
+    bias[j] = co < a.Cout ? a.b[co] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < F_PIX; ++i) {
+    const int p = ty + TY * i;
+    const int pr = p / tw, pc = p - pr * tw;
+    const int R = R0 + pr, c = c0 + pc;
+    if (pr >= th || R >= a.NH || c >= a.W) continue;
+    float v[F_CH];
+#pragma unroll
+    for (int j = 0; j < F_CH; ++j) {
+      const float t = acc[i][j] + bias[j];
+      v[j] = t >= 0.f ? t : a.slope * t;
+    }
+    float* dst = a.y + ((long long)R * a.W + c) * a.Cout + n0;
+    if (a.vec_y) {  // Cout % 4 == 0: each piece is in or out whole
+      if (n0 + 4 * tx < a.Cout)
+        *reinterpret_cast<float4*>(dst + 4 * tx) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      if (n0 + C4 + 2 * tx < a.Cout)
+        *reinterpret_cast<float2*>(dst + C4 + 2 * tx) = make_float2(v[4], v[5]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < F_CH; ++j) {
+        const int co = j < 4 ? 4 * tx + j : C4 + 2 * tx + j - 4;
+        if (n0 + co < a.Cout) dst[co] = v[j];
+      }
+    }
+  }
+}
+
+// The launch's arguments from the plan, checked and completed as k1_plan
+// computes them; false if the plan is not one the kernel takes. smem: the
+// bytes of shared memory per block.
+__host__ inline bool f32_args(F32Args& a, int n, int h, int w_, int cin,
+                              int cout, int cols, int tw, int th, int cc,
+                              int kr, size_t& smem) {
+  const int px = F_PIX * F_THREADS / (cols / F_CH);
+  if (n < 1 || h < 1 || w_ < 1 || cin < 1 || cout < 1 ||
+      (cols != 48 && cols != 96) || tw < 1 || tw > F_MAX_TW || tw > w_ ||
+      th < 1 || tw * th > px || kr < 4 || kr % 4 || cc < 4 || cc % 4)
+    return false;
+  a.NH = n * h; a.H = h; a.W = w_; a.Cin = cin; a.Cout = cout;
+  a.cin4 = (cin + 3) / 4 * 4;
+  if (cc > a.cin4) return false;
+  a.cc = cc;
+  a.passes = (a.cin4 + cc - 1) / cc;
+  a.ldc = f32_ldc(cc);
+  a.kr = kr;
+  a.chunks = 0;  // per segment, ceil(its rows / kr)
+  for (int sg = 0; sg < (a.passes == 1 ? 1 : 9 * a.passes); ++sg) {
+    int start, len;
+    f32_segment(a, sg, start, len);
+    a.chunks += (len + kr - 1) / kr;
+  }
+  a.tw = tw; a.th = th;
+  a.col_tiles = (w_ + tw - 1) / tw;
+  smem = (size_t)f32_layout(cols, tw, th, a.ldc, kr).total * sizeof(float);
+  return smem <= (size_t)SMEM_LIMIT;
+}
+
+template <int COLS>
+int launch_f32(const F32Args& a, size_t smem, int col_blocks,
+               cudaStream_t stream) {
+  const long long row_tiles = ((long long)a.NH + a.th - 1) / a.th;
+  const long long tiles = row_tiles * a.col_tiles;
+  if (tiles > 0x7fffffffLL || col_blocks > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto kern = conv_fma_kernel<COLS>;
+  static std::atomic<int> ready[MAX_DEVICES];  // attributes set per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev].store(1, std::memory_order_relaxed);
+  }
+  const dim3 grid((unsigned)tiles, (unsigned)col_blocks);
+  kern<<<grid, F_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Launches on `stream`
-// and does not synchronise. w: the (9*Cin, Cout) fp32 matrix.
-extern "C" int shifted_conv3x3_f32(const void* x, const void* w, const void* b,
-                                   void* y, int n, int h, int w_, int cin,
-                                   int cout, float slope, void* stream) {
-  const long long M = (long long)n * h * w_;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((cout + BN - 1) / BN));
-  shifted_conv3x3_kernel<float><<<grid, THREADS, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), n, h, w_, cin,
-      cout, slope);
-  return (int)cudaGetLastError();
+// fp32 on the FMA pipes, with the plan of k1_plan: cols output channels
+// per block (48 or 96), a tile of th x tw pixels, cc channels of the
+// halo'd tile per pass, kr weight rows per ring stage. w: the packed
+// (ceil(cout / cols), 9 * cin4, cols) weights (cin4: Cin rounded up to 4),
+// zero past Cin in each tap and past Cout, on a 16-byte boundary. Returns
+// the cudaError_t of the launch (0 on success); launches on `stream` and
+// does not synchronise.
+extern "C" int shifted_conv3x3_f32_halo(const void* x, const void* w,
+                                        const void* b, void* y, int n, int h,
+                                        int w_, int cin, int cout, int cols,
+                                        int tw, int th, int cc, int kr,
+                                        float slope, void* stream) {
+  F32Args a;
+  size_t smem = 0;
+  if (!f32_args(a, n, h, w_, cin, cout, cols, tw, th, cc, kr, smem) ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.b = static_cast<const float*>(b);
+  a.y = static_cast<float*>(y);
+  a.vec_x = cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec_y = cout % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  a.slope = slope;
+  const int col_blocks = (cout + cols - 1) / cols;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cols == 48 ? launch_f32<48>(a, smem, col_blocks, s)
+                    : launch_f32<96>(a, smem, col_blocks, s);
 }
 
 // bf16 on the tensor cores, with the plan of k1_plan: cc input channels per

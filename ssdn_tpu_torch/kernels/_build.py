@@ -59,7 +59,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source whose library is missing, one ``nvcc``
     per source, all started together. Returns {name: compiler output} for
     the sources compiled now (``-Xptxas=-v``: registers, shared memory,
-    spills). Raises with the compiler output if any build fails."""
+    spills), also kept beside each library (``build_log``). Raises with
+    the compiler output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -79,10 +80,20 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
                           f"{logs[name]}")
         else:
+            with open(lib + ".log", "w") as f:
+                f.write(logs[name])
             os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output of ``csrc/<name>.cu``'s current library (built
+    now if missing)."""
+    build([name])
+    with open(_paths(name)[1] + ".log") as f:
+        return f.read()
 
 
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:

@@ -8,7 +8,7 @@ plain PyTorch twin ``torch_reference``. There is no size-based fallback:
 the TPU kernel sent large images to XLA because VMEM is small; the CUDA
 kernel takes every shape the model produces. ``k1_plan`` is the launch
 plan (instantiation, tile, passes over Cin, shared bytes) that the wrapper
-checks and passes to the bf16 kernel.
+checks and passes to the kernel of either dtype.
 
 ``fused_shifted_conv`` is the differentiable entry point (the JAX
 package's ``fused_shifted_conv`` custom VJP): an ``autograd.Function``
@@ -33,7 +33,7 @@ from ssdn_tpu_torch.ops.shifted import _precision
 launches = 0
 
 _SIGNATURES = {
-    "shifted_conv3x3_f32": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    "shifted_conv3x3_f32_halo": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_void_p],
     "shifted_conv3x3_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p],
@@ -42,11 +42,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 #: One block's shared-memory limit on the H100 (bytes).
 SMEM_LIMIT = 232_448
-# csrc/shifted_conv.cu's geometry. fp32 (FMA): linear tiles of 64 pixels x
-# 48 channels, K in slices of 32, 128 threads. bf16 (tensor cores): 8 warps
-# of 32 pixels x 48 channels, tiles at most 64 pixels wide, shared rows
-# padded by 8 bf16, a 2-stage weight ring.
-_F32_PX, _F32_COLS, _F32_BK, _F32_THREADS = 64, 48, 32, 128
+# csrc/shifted_conv.cu's geometry. fp32 (FMA): 256 threads of 8 pixels x 6
+# output channels, tiles at most 16 pixels wide, a 3-stage ring of 32
+# weight rows. bf16 (tensor cores): 8 warps of 32 pixels x 48 channels,
+# tiles at most 64 pixels wide, shared rows padded by 8 bf16, a 2-stage
+# weight ring.
+_F32_THREADS, _F32_PIX, _F32_CH, _F32_MAX_TW = 256, 8, 6, 16
+_F32_STAGES, _F32_KR = 3, 32
+#: Shared memory of one H100 SM, and what CUDA reserves of it per block.
+SM_SMEM, BLOCK_RESERVED = 228 * 1024, 1024
 _TC_WARPS, _WARP_PX, _WARP_COLS, _MAX_TW, _SKEW, _STAGES = 8, 32, 48, 64, 8, 2
 #: (Cin, Cout) pairs of the model: one pass over Cin, compile-time widths.
 FIXED = ((48, 48), (96, 96), (48, 96))
@@ -60,10 +64,11 @@ def _cdiv(a: int, b: int) -> int:
 class K1Plan:
     """One K1 launch: the instantiation ("fma" for fp32; "fixed" or
     "generic" for bf16), the input channels staged per pass and the passes
-    over Cin, the output channels per block and the blocks along Cout, the
-    tile (tile_h rows x tile_w columns of the batch's rows; fp32: 0 x 0,
-    linear runs of ``pixels``), the tiles along the pixels, the threads and
-    the shared bytes of a block."""
+    over Cin (fp32: over Cin rounded up to 4), the output channels per
+    block and the blocks along Cout, the tile (tile_h rows x tile_w columns
+    of the batch's rows), the tiles along the pixels, the threads and the
+    shared bytes of a block; fp32 also the weight rows per ring stage (kr)
+    and the blocks that share an SM (the default is the bf16 kernel's)."""
     instantiation: str
     cc: int
     passes: int
@@ -75,6 +80,8 @@ class K1Plan:
     tiles: int
     threads: int
     smem: int
+    kr: int = 0
+    blocks_per_sm: int = 2
 
 
 def k1_plan(n: int, h: int, w: int, cin: int, cout: int,
@@ -83,11 +90,7 @@ def k1_plan(n: int, h: int, w: int, cin: int, cout: int,
     and x's dtype: the numbers the wrapper checks with and passes to the
     bf16 kernel, and that ``csrc/shifted_conv.cu`` computes the same way."""
     if dtype != torch.bfloat16:
-        smem = 4 * (_F32_BK * (_F32_PX + 1) + _F32_BK * _F32_COLS
-                    + 2 * _F32_PX)
-        return K1Plan("fma", _F32_BK, _cdiv(9 * cin, _F32_BK), _F32_COLS,
-                      _cdiv(cout, _F32_COLS), 0, 0, _F32_PX,
-                      _cdiv(n * h * w, _F32_PX), _F32_THREADS, smem)
+        return _k1_plan_f32(n, h, w, cin, cout)
     fixed = (cin, cout) in FIXED
     if fixed:
         cc = cin
@@ -109,6 +112,36 @@ def k1_plan(n: int, h: int, w: int, cin: int, cout: int,
     return K1Plan("fixed" if fixed else "generic", cc, _cdiv(cin, cc), cols,
                   _cdiv(cout, cols), th, tw, px,
                   _cdiv(n * h, th) * _cdiv(w, tw), 32 * _TC_WARPS, smem)
+
+
+def _f32_smem(cols: int, tw: int, th: int, cc: int) -> int:
+    """fp32 K1's shared bytes: the halo'd tile ((th+2) x (tw+2) slots of
+    cc channels, padded to an odd multiple of 4 floats), the weight ring
+    and the zero row."""
+    ldc = cc + 4 if cc % 8 == 0 else cc
+    return 4 * ((th + 2) * (tw + 2) * ldc + _F32_STAGES * _F32_KR * cols
+                + ldc)
+
+
+def _k1_plan_f32(n, h, w, cin, cout) -> K1Plan:
+    """fp32: 48 output channels and 256 pixels per block for Cout <= 48,
+    else 96 and 128; a tile at most 16 wide; all of Cin (rounded up to 4)
+    in one pass unless the halo'd tile would not fit one block, then the
+    fewest passes that fit."""
+    cols = 48 if cout <= 48 else 96
+    px = _F32_PIX * _F32_THREADS // (cols // _F32_CH)
+    tw = min(w, _F32_MAX_TW)
+    th = px // tw
+    cin4 = _cdiv(cin, 4) * 4
+    passes, cc = 1, cin4
+    while _f32_smem(cols, tw, th, cc) > SMEM_LIMIT and cc > 4:
+        passes += 1
+        cc = 4 * _cdiv(cin4, 4 * passes)
+    smem = _f32_smem(cols, tw, th, cc)
+    return K1Plan("fma", cc, _cdiv(cin4, cc), cols, _cdiv(cout, cols), th, tw,
+                  px, _cdiv(n * h, th) * _cdiv(w, tw), _F32_THREADS, smem,
+                  kr=_F32_KR, blocks_per_sm=2 if 2 * (smem + BLOCK_RESERVED) <= SM_SMEM
+                  else 1)
 
 
 def _check_k1_launch(plan: K1Plan) -> None:
@@ -135,6 +168,23 @@ def pack_weights(w: torch.Tensor, plan: K1Plan) -> torch.Tensor:
         0, plan.col_blocks * plan.cols - cout, 0, plan.passes * plan.cc - cin))
     wk = wk.view(9, plan.passes, plan.cc, plan.col_blocks, plan.cols)
     return wk.permute(3, 1, 0, 2, 4).contiguous()
+
+
+def pack_weights_f32(w: torch.Tensor, plan: K1Plan) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) -> the fp32 kernel's (col_blocks, 9 * cin4, cols)
+    rows, row k' = tap * cin4 + ci (cin4: Cin rounded up to 4), zero past
+    Cin in each tap and past Cout. At the model's widths that is just (3,
+    3, Cin, Cout), with no padding."""
+    cout, cin = w.shape[0], w.shape[1]
+    wk = w.to(torch.float32).permute(2, 3, 1, 0)  # (3, 3, Cin, Cout)
+    cin4 = _cdiv(cin, 4) * 4
+    if cin4 == cin and plan.col_blocks * plan.cols == cout:
+        return wk.contiguous()
+    wk = F.pad(wk.reshape(9, cin, cout),
+               (0, plan.col_blocks * plan.cols - cout, 0, cin4 - cin))
+    wk = wk.view(9, cin4, plan.col_blocks, plan.cols)
+    return wk.permute(2, 0, 1, 3).contiguous().view(plan.col_blocks, 9 * cin4,
+                                                    plan.cols)
 
 
 def torch_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
@@ -201,11 +251,11 @@ def shifted_conv3x3_bias_act(x: torch.Tensor, w: torch.Tensor,
                 n, h, wd, cin, cout, plan.cc, plan.cols // _WARP_COLS,
                 plan.tile_w, plan.tile_h, negative_slope, stream)
         else:
-            # (Cout, Cin, 3, 3) -> (3, 3, Cin, Cout) = the (9*Cin, Cout) matrix
-            wk = w.to(x.dtype).permute(2, 3, 1, 0).contiguous()
-            err = lib.shifted_conv3x3_f32(
+            wk = pack_weights_f32(w, plan)
+            err = lib.shifted_conv3x3_f32_halo(
                 x.data_ptr(), wk.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                n, h, wd, cin, cout, negative_slope, stream)
+                n, h, wd, cin, cout, plan.cols, plan.tile_w, plan.tile_h,
+                plan.cc, plan.kr, negative_slope, stream)
     if err:
         raise RuntimeError(f"K1 shifted_conv3x3_bias_act launch failed: "
                            f"CUDA error {err}")

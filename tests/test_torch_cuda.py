@@ -170,6 +170,68 @@ def test_k1_bf16_is_bitwise_repeatable(cuda):
     assert torch.equal(a, c)
 
 
+# fp32 K1 where its plan stages the halo'd tile in passes over Cin (Cin
+# 512; Cin 144 at W 1, a tile of one column)
+K1_FP32_PASSES_SHAPES = [(2, 512, 16, 24, 96), (2, 512, 11, 7, 48),
+                         (4, 144, 40, 1, 96)]
+
+
+def _k1_fp32_matches_twin(shape, seed):
+    """fp32 K1 on the FMA pipes against the twin (cuDNN with TF32 off).
+    Both sides accumulate 9*Cin products in fp32 and differ only in
+    summation order, and two orders differ in proportion to the products'
+    magnitudes, not the sum's: where the products cancel, the difference
+    outgrows ``TOL32`` taken against |ref| (at dec1b's 6 x 10^8 outputs,
+    about 1 in 10^5 for any two orders, the first fp32 kernel's bits
+    included). So the bar is ``TOL32`` with its relative part taken
+    against sum |x w| + |b| at each output; a missing or misplaced product
+    (about 0.1 here) is far above it."""
+    n, cin, h, w, cout = shape
+    x, wt, b = _k1_operands(seed, n, h, w, cin, cout, torch.float32)
+    x[0, 0, 0, 0] = -0.0
+    before = K1.launches
+    got = K1.shifted_conv3x3_bias_act(x, wt, b)
+    torch.cuda.synchronize()
+    assert K1.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, cout, h, w)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    d = (got - K1.torch_reference(x, wt, b)).abs()
+    mag = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x.abs(), (1, 1, 2, 0)), wt.abs())
+    bar = TOL32["atol"] + TOL32["rtol"] * (mag + b.abs().view(1, -1, 1, 1))
+    assert (d <= bar).all(), (
+        f"{int((d > bar).sum())} outputs off the bar, max |err| "
+        f"{d.max().item():.3e}, max |err| / bar {(d / bar).max().item():.3f}")
+
+
+@pytest.mark.parametrize("shape", K1_TRAIN_SHAPES + K1_REQUEST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_fp32_matches_twin_at_the_model_shapes(cuda, shape):
+    """fp32 K1 at every training layer shape and at request layer shapes."""
+    _k1_fp32_matches_twin(shape, sum(shape))
+
+
+@pytest.mark.parametrize("shape", K1_ODD_SHAPES + K1_FP32_PASSES_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k1_fp32_matches_twin_at_odd_shapes(cuda, shape):
+    """fp32 K1 where Cin is not a multiple of 4 (padded to one, staged in
+    4-byte copies), Cout not 48 or 96, W narrower than a tile (tiles span
+    images) or not a multiple of the tile width, and where the tile is
+    staged in passes over Cin."""
+    _k1_fp32_matches_twin(shape, 7 + sum(shape))
+
+
+def test_k1_fp32_is_bitwise_repeatable(cuda):
+    """At a dec1b-sized call (batch 1536, 64x64, 96 -> 96: 49,152 tiles)
+    two launches give the same bit patterns: no atomics, a fixed summation
+    order (-0.0 and +0.0 told apart)."""
+    x, wt, b = _k1_operands(5, 1536, 64, 64, 96, 96, torch.float32)
+    a = K1.shifted_conv3x3_bias_act(x, wt, b)
+    c = K1.shifted_conv3x3_bias_act(x, wt, b)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
 def test_k1_refuses_before_launching(cuda, monkeypatch):
     """What K1's plan does not fit raises before any launch, and launches
     nothing (no shape of the model is refused: the limit is lowered here)."""
