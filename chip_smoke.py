@@ -47,7 +47,26 @@ which fails the run (non-zero exit) on any error:
    profiles one request and one step per arm (device busy and idle share),
    and each kernel per request against its bound, its twin and a library
    yardstick (the kernels line: the bf16 model's numbers, the fp32 model's
-   under ``per_request_fp32`` / ``per_train_step_fp32``).
+   under ``per_request_fp32`` / ``per_train_step_fp32``);
+7. the Trainer path: the flagship at full width from random init (RGB,
+   Gaussian sigma 25 known, 64x64 patches at batch 384, stabilized
+   objective, bf16 trunk) trains 40 steps with eval (``synthetic:4:512``)
+   and snapshots every 20 steps in two arms: the conv arm through
+   ``cli.train.main`` (K1, native sampler on ``synthetic:64:128``), the
+   head arm through ``Trainer`` (K2' and K3 per step, K2 per eval;
+   streaming sampler on ``synthetic:inf:128``). Each run's loss is finite
+   and falls from step 10 to 40, its workdir holds ckpt/, ckpt_best/,
+   best_psnr.json, metrics.jsonl and sampler_backend.json, and its
+   launches are counted exactly. A head-arm run preempted after its
+   step-20 snapshot and resumed by a new Trainer is held to the
+   uninterrupted run's params (``RESUME_BAR``; whether the bits match is
+   printed), and two resumes with a planted fault (the optimizer state
+   zeroed; the batches of steps 0-19 again) must read above that bar;
+   ``cli.denoise --workdir`` serves a 768x512 image from the
+   conv arm's workdir through K1. It records the Trainer's own patches/s
+   beside [5]'s fixed-batch window, the device idle share over ten
+   profiled Trainer steps, and the host samplers' rates. The kernels
+   line's ``launches_by_path`` gains ``trainer``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits with code 2 and
@@ -85,6 +104,18 @@ TRAIN_WARM = 5       # steps before the patches/s clock starts
 # after warm-ups, per arm
 REF_ARMS = ("lax", "head_pallas", "conv_pallas")
 REF_STEPS, REF_WARM = 10, 3
+# the Trainer path ([7]): the flagship at full width from random init,
+# trained through the entry points; log / eval-and-snapshot intervals
+TRAINER_STEPS, TRAINER_LOG, TRAINER_EVAL = 40, 10, 20
+TRAINER_EVAL_DATA = "synthetic:4:512"
+TRAINER_DIR = "build/chip_smoke_trainer"   # under the checkout, gitignored
+# exact resume on the card: the resumed run's params against the
+# uninterrupted run's, ||resumed - full|| <= RESUME_BAR ||full - init||
+# over all params (cuDNN's backward need not be deterministic; the bits
+# are reported, not required). Two resumes with a planted fault (RESUME_
+# FAULTS) must read above the bar, or the bar could not tell them.
+RESUME_BAR = 1e-3
+RESUME_FAULTS = ("opt_state_zeroed", "batches_from_step_0")
 
 
 class SmokeFailure(Exception):
@@ -1422,6 +1453,327 @@ def training_line(report, timing, launches):
     return line
 
 
+# ------------------------------ the Trainer ------------------------------
+
+
+class _Preempted(Exception):
+    pass
+
+
+def trainer_cfg(conv, head):
+    """The flagship at full width (enc 48, dec 96, nin 384/96): RGB,
+    Gaussian sigma 25 known, stabilized objective, bf16 trunk ("auto"),
+    64x64 patches at batch 384, from random init (seed 0)."""
+    from ssdn_tpu_torch.config import ModelConfig, TrainConfig, parse_noise_style
+
+    return TrainConfig(
+        noise=parse_noise_style("gauss25"),
+        model=ModelConfig(in_channels=3, conv_backend=conv, head_backend=head),
+        patch_size=PATCH, batch_size=TRAIN_BATCH, iterations=TRAINER_STEPS,
+        eval_interval=TRAINER_EVAL, snapshot_interval=TRAINER_EVAL, seed=0)
+
+
+def trace_busy_ms(path):
+    """(device busy ms, traced ms, top device events as (name, ms, count))
+    of a torch.profiler chrome trace: busy is the union of the intervals of
+    its device events (kernels, copies, memsets) over every stream (the
+    prefetch copies run on streams of their own); traced is the span from
+    its first event to its last, host or device."""
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and "dur" in e]
+    traced = (max(e["ts"] + e["dur"] for e in spans)
+              - min(e["ts"] for e in spans))
+    events = [e for e in spans
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        name = e["name"].replace("void (anonymous namespace)::", "")[:60]
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                 key=lambda t: -t[1])[:10]
+    return busy / 1e3, traced / 1e3, top
+
+
+def trainer_rows(wd):
+    with open(f"{wd}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    return ({r["step"]: r for r in rows if r["prefix"] == "train"},
+            [r for r in rows if r["prefix"] == "eval"])
+
+
+def check_workdir(torch, wd, name, backend):
+    import os
+
+    for entry in ("config.json", "ckpt", "ckpt_best", "best_psnr.json",
+                  "metrics.jsonl", "sampler_backend.json"):
+        check(os.path.exists(f"{wd}/{entry}"), f"{name}: no {entry} in {wd}")
+    with open(f"{wd}/sampler_backend.json") as f:
+        recorded = json.load(f)["backend"]
+    check(recorded == backend, f"{name}: sampler backend {recorded}, "
+                               f"expected {backend}")
+    train, evals = trainer_rows(wd)
+    check(sorted(train) == list(range(TRAINER_LOG, TRAINER_STEPS + 1,
+                                      TRAINER_LOG)),
+          f"{name}: logged steps {sorted(train)}")
+    losses = {s: r["loss"] for s, r in train.items()}
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"{name}: non-finite loss {losses}")
+    check(losses[TRAINER_STEPS] < losses[TRAINER_LOG],
+          f"{name}: loss at step {TRAINER_STEPS} {losses[TRAINER_STEPS]:.4f} "
+          f"not below step {TRAINER_LOG}'s {losses[TRAINER_LOG]:.4f}")
+    # patches/s over the steps after TRAINER_EVAL, from the Trainer's own
+    # log lines (each times its window on the host clock; the window after
+    # an eval includes that eval and the snapshot)
+    later = [s for s in train if s > TRAINER_EVAL]
+    seconds = sum(TRAINER_LOG * TRAIN_BATCH / train[s]["patches_per_sec"]
+                  for s in later)
+    busy, traced, top = trace_busy_ms(f"{wd}/profile/trace.json")
+    return dict(losses=losses, evals=[(r["step"], r["psnr"]) for r in evals],
+                patches_per_s=len(later) * TRAINER_LOG * TRAIN_BATCH / seconds,
+                patches_per_s_last=train[TRAINER_STEPS]["patches_per_sec"],
+                busy_ms_per_step=busy / TRAINER_LOG,
+                traced_ms_per_step=traced / TRAINER_LOG,
+                # over the profiled window itself: the profiler's host
+                # cost slows the host side, so this is an upper bound
+                idle_share=1 - busy / traced,
+                top_ms_per_step=[(k, ms / TRAINER_LOG, n) for k, ms, n in top],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def sampler_rates():
+    """The host samplers alone: patches/s of sample() called in turn, and
+    through a Prefetcher with its default 4 threads (no device copy)."""
+    from ssdn_tpu_torch.data import Prefetcher, open_dataset
+    from ssdn_tpu_torch.native import make_sampler
+
+    out = {}
+    for name, spec, backend, n in (("native", "synthetic:64:128", "native", 20),
+                                   ("streaming", "synthetic:inf:128", "auto", 10)):
+        s = make_sampler(open_dataset(spec), PATCH, TRAIN_BATCH, seed=0,
+                         backend=backend)
+        s.sample(0)
+        t0 = time.perf_counter()
+        for i in range(n):
+            s.sample(i)
+        alone = n * TRAIN_BATCH / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in Prefetcher(s, 0, 2 * n):
+            pass
+        pre = 2 * n * TRAIN_BATCH / (time.perf_counter() - t0)
+        out[name] = dict(sampler=type(s).__name__, patches_per_s=alone,
+                         prefetched_patches_per_s=pre)
+        getattr(s, "close", lambda: None)()
+    return out
+
+
+def run_trainer(torch, report):
+    """The Trainer path: the conv arm through ``cli.train.main`` (K1, the
+    native sampler), the head arm through ``Trainer`` (K2' and K3 per step,
+    K2 per eval; the streaming sampler), each TRAINER_STEPS steps with
+    eval and snapshots, counts read around each; then exact resume (head
+    arm, preempted after its step-20 snapshot) and ``cli.denoise
+    --workdir`` on the conv arm's workdir."""
+    import shutil
+
+    import ssdn_tpu_torch.infer as infer
+    from ssdn_tpu_torch.cli.denoise import main as denoise_main
+    from ssdn_tpu_torch.cli.train import main as train_main
+    from ssdn_tpu_torch.train.loop import Trainer
+    from ssdn_tpu_torch.train.step import init_state
+    from ssdn_tpu_torch.utils import load_image, save_image
+
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    n_eval = int(TRAINER_EVAL_DATA.split(":")[1])
+    eval_forwards = (TRAINER_STEPS // TRAINER_EVAL) * -(-n_eval // 4)
+    out, launches = {}, {}
+
+    conv_wd = f"{TRAINER_DIR}/conv"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_main([
+        "--workdir", conv_wd, "--device", DEVICE,
+        "--train-data", "synthetic:64:128", "--eval-data", TRAINER_EVAL_DATA,
+        "--sampler-backend", "native", "--conv-backend", "pallas",
+        "--noise-style", "gauss25", "--patch-size", str(PATCH),
+        "--batch-size", str(TRAIN_BATCH), "--iterations", str(TRAINER_STEPS),
+        "--log-interval", str(TRAINER_LOG),
+        "--eval-interval", str(TRAINER_EVAL),
+        "--snapshot-interval", str(TRAINER_EVAL),
+        "--profile-dir", f"{conv_wd}/profile"])
+    launches["conv"] = read_counts()
+    out["conv"] = dict(check_workdir(torch, conv_wd, "conv arm", "native"),
+                       seconds=time.perf_counter() - t0)
+
+    head_cfg = trainer_cfg("lax", "pallas")
+    head_wd = f"{TRAINER_DIR}/head"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    full = Trainer(head_cfg, head_wd, train_data="synthetic:inf:128",
+                   eval_data=TRAINER_EVAL_DATA, log_interval=TRAINER_LOG,
+                   profile_dir=f"{head_wd}/profile", device=DEVICE).train()
+    launches["head"] = read_counts()
+    out["head"] = dict(check_workdir(torch, head_wd, "head arm", "python"),
+                       seconds=time.perf_counter() - t0)
+
+    want = {"conv": dict(k1=K1_PER_TRUNK * (TRAINER_STEPS + eval_forwards),
+                         k2=0, k2_save_h1=0, k3=0),
+            "head": dict(k1=0, k2=eval_forwards, k2_save_h1=TRAINER_STEPS,
+                         k3=TRAINER_STEPS)}
+    for arm, counts in launches.items():
+        check(counts == want[arm], f"Trainer {arm} arm: launches {counts}, "
+                                   f"expected {want[arm]}")
+
+    # exact resume: preempted after the step-TRAINER_EVAL snapshot, then a
+    # new Trainer on the same workdir trains on to the end
+    cut_wd = f"{TRAINER_DIR}/head_resumed"
+    tr = Trainer(head_cfg, cut_wd, train_data="synthetic:inf:128",
+                 eval_data=TRAINER_EVAL_DATA, log_interval=TRAINER_LOG,
+                 device=DEVICE)
+    real = tr.step_fn
+
+    def preempted(state, batch):
+        if state.step == TRAINER_EVAL:
+            raise _Preempted
+        return real(state, batch)
+
+    tr.step_fn = preempted
+    try:
+        tr.train()
+        check(False, "the preempted run was not preempted")
+    except _Preempted:
+        pass
+    check(tr.ckpt.latest_step() == TRAINER_EVAL,
+          f"preempted run: latest checkpoint {tr.ckpt.latest_step()}")
+    for fault in RESUME_FAULTS:
+        shutil.copytree(cut_wd, f"{cut_wd}_{fault}")
+
+    def resume(wd, fault=None):
+        tr = Trainer(head_cfg, wd, train_data="synthetic:inf:128",
+                     eval_data=TRAINER_EVAL_DATA, log_interval=TRAINER_LOG,
+                     device=DEVICE)
+        if fault == "opt_state_zeroed":
+            restore = tr.ckpt.restore
+
+            def zeroed(target):
+                state = restore(target)
+                for tree in state.opt_state.values():
+                    for t in (v for d in tree.values() for v in d.values()):
+                        t.zero_()
+                return state
+
+            tr.ckpt.restore = zeroed
+        elif fault == "batches_from_step_0":
+            sampler = tr.sampler
+            tr.sampler = type("Restarted", (), dict(
+                sample=lambda self, s: sampler.sample(s - TRAINER_EVAL)))()
+        return tr.train()
+
+    init = init_state(head_cfg, device=DEVICE).params
+    keys = [(k, n) for k in full.params for n in full.params[k]]
+    sq = lambda a, b: sum(float(torch.sum((a[k][n].float() - b[k][n].float())
+                                          ** 2)) for k, n in keys)
+    moved = sq(full.params, init) ** 0.5
+
+    def against_full(state):
+        gap = sq(state.params, full.params) ** 0.5
+        return dict(
+            step=state.step, gap_l2=gap, moved_l2=moved, ratio=gap / moved,
+            max_abs=max(float((state.params[k][n] - full.params[k][n])
+                              .abs().max()) for k, n in keys),
+            bits_match=all(torch.equal(state.params[k][n], full.params[k][n])
+                           for k, n in keys),
+            bar=RESUME_BAR)
+
+    rs = out["resume"] = against_full(resume(cut_wd))
+    check(rs["step"] == TRAINER_STEPS, f"resumed to step {rs['step']}")
+    check(rs["ratio"] <= RESUME_BAR,
+          f"resumed params off the uninterrupted run's: |gap| "
+          f"{rs['gap_l2']:.3g} > {RESUME_BAR} x |moved| {moved:.3g}")
+    rs["faults"] = {}
+    for fault in RESUME_FAULTS:
+        f = rs["faults"][fault] = against_full(resume(f"{cut_wd}_{fault}",
+                                                      fault))
+        check(f["step"] == TRAINER_STEPS and f["ratio"] > RESUME_BAR,
+              f"a resume with {fault} reads {f['ratio']:.3g} of the distance "
+              f"moved, within the bar {RESUME_BAR}: the bar cannot tell it")
+
+    # serving from the conv arm's workdir through cli.denoise
+    clean = clean_image(700, *KODAK)
+    noisy = clean + np.random.default_rng(701).normal(
+        0, 25 / 255, clean.shape).astype(np.float32)
+    save_image(f"{TRAINER_DIR}/in/kodak.png", noisy)
+    got = []
+    real_denoise = infer.denoise_image
+    infer.denoise_image = lambda *a, **k: got.append(
+        real_denoise(*a, **k)) or got[-1]
+    reset_counts()
+    try:
+        denoise_main(["--workdir", conv_wd, "--input",
+                      f"{TRAINER_DIR}/in/kodak.png", "--output",
+                      f"{TRAINER_DIR}/out", "--device", DEVICE])
+    finally:
+        infer.denoise_image = real_denoise
+    launches["denoise"] = read_counts()
+    written = load_image(f"{TRAINER_DIR}/out/kodak_denoised.png")
+    check(len(got) == 1 and got[0].shape == (*KODAK, 3)
+          and bool(np.isfinite(got[0]).all()),
+          "cli.denoise --workdir: no finite 768x512 output")
+    check(written.shape == (*KODAK, 3), f"denoised file {written.shape}")
+    check(launches["denoise"]["k1"] == 2 * K1_PER_TRUNK,
+          f"cli.denoise --workdir: launches {launches['denoise']}")
+
+    out["samplers"] = sampler_rates()
+    fixed = {r["arm"]: r["patches_per_s"] for r in report["training"]}
+    for arm, key in (("conv", "conv_pallas"), ("head", "head_pallas")):
+        r = out[arm]
+        r["fixed_batch_patches_per_s"] = fixed[key]
+        # the profiled steps' device time against the unprofiled steps'
+        # host clock (as [6] does for the fixed batch)
+        r["idle_share_unprofiled"] = 1 - r["busy_ms_per_step"] / (
+            TRAIN_BATCH / r["patches_per_s_last"] * 1e3)
+        print(f"  Trainer {arm} arm: {r['seconds']:.1f} s for "
+              f"{TRAINER_STEPS} steps, loss {r['losses'][TRAINER_LOG]:.4f} "
+              f"(step {TRAINER_LOG}) -> {r['losses'][TRAINER_STEPS]:.4f}; "
+              f"{r['patches_per_s']:.1f} patches/s over steps "
+              f"{TRAINER_EVAL}-{TRAINER_STEPS} ({r['patches_per_s_last']:.1f}"
+              f" over the last {TRAINER_LOG}), fixed batch ([5]) "
+              f"{fixed[key]:.1f}; device busy {r['busy_ms_per_step']:.2f} "
+              f"of {r['traced_ms_per_step']:.2f} ms per step (profiled steps "
+              f"{TRAINER_LOG}-{TRAINER_EVAL}), idle {r['idle_share']:.1%} "
+              f"(against the unprofiled last {TRAINER_LOG}: "
+              f"{r['idle_share_unprofiled']:.1%}); "
+              f"peak {r['peak_gb']:.1f} GB; evals "
+              f"{r['evals']}; top kernels (ms per step): "
+              + ", ".join(f"{k[:40]} {ms:.2f}"
+                          for k, ms, _ in r["top_ms_per_step"][:5]))
+    rs = out["resume"]
+    print(f"  resume at step {TRAINER_EVAL}: params |resumed - full| "
+          f"{rs['gap_l2']:.3g} = {rs['ratio']:.3g} x |full - init| "
+          f"{rs['moved_l2']:.3g} (bar {RESUME_BAR}), max abs "
+          f"{rs['max_abs']:.3g}, bits match: {rs['bits_match']}; planted "
+          "faults: " + ", ".join(f"{k} {f['ratio']:.3g}"
+                                 for k, f in rs["faults"].items()))
+    for name, r in out["samplers"].items():
+        print(f"  host sampler {name} ({r['sampler']}, batch {TRAIN_BATCH}): "
+              f"{r['patches_per_s']:.1f} patches/s alone, "
+              f"{r['prefetched_patches_per_s']:.1f} through a 4-thread "
+              "Prefetcher")
+    print(f"  Trainer path launches: {launches}")
+    report["trainer"] = out
+    report["trainer_launches"] = launches
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -1485,13 +1837,31 @@ def main(argv=None) -> int:
     profile_train_step(torch, models, report)
     kernel_line = time_kernels(torch, calls, launches, report)
     kernel_line += training_line(report, train_timing, train_launches)
+    del calls
+    torch.cuda.empty_cache()
+
+    print(f"[7] main path, the Trainer: {TRAINER_STEPS} steps x 2 arms at "
+          f"batch {TRAIN_BATCH} (eval, snapshots), resume, cli.denoise "
+          "--workdir")
+    trainer = run_trainer(torch, report)
+    check(all(trainer[arm][k] > 0 for arm, ks in (
+        ("conv", ("k1",)), ("head", ("k2", "k2_save_h1", "k3"))) for k in ks),
+        f"a kernel was not launched on the Trainer path: {trainer}")
+    by_name = {"shifted_conv3x3_bias_act": ("k1", "conv", "serving"),
+               "fused_nin_head": ("k2", "head", "serving"),
+               "nin_head_fwd(save_h1=True)": ("k2_save_h1", "head", "training"),
+               "nin_head_bwd": ("k3", "head", "training")}
     for entry in kernel_line:
+        count, arm, first = by_name[entry["name"]]
+        entry["launches_by_path"] = {first: entry["launches"],
+                                     "trainer": trainer[arm][count]}
+        entry["launches"] += trainer[arm][count]
         if entry["name"] == "shifted_conv3x3_bias_act":
             entry["launches"] += train_launches["k1"]
-            entry["launches_by_path"] = {
-                "serving": launches["k1"], "training": train_launches["k1"],
-                "reference_training_fp32": report["reference_train_launches"][
-                    "conv_pallas"]["k1"]}
+            entry["launches_by_path"].update(
+                training=train_launches["k1"],
+                reference_training_fp32=report["reference_train_launches"][
+                    "conv_pallas"]["k1"])
             for key, dt in (("per_train_step", "bfloat16"),
                             ("per_train_step_fp32", "float32")):
                 t = next(v for (k, _), v in train_timing.items()

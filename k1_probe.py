@@ -4,6 +4,7 @@ layer by layer.
 
     python3 k1_probe.py [--reps N] [--fp32] [--variants] [--host]
                         [--against DIR] [--window DIR] [--out PATH]
+    python3 k1_probe.py --held GB [GB ...] [--out PATH]
 
 On random operands (made on the card from a seed) at the 12 layer shapes
 of a batch-384 training step (the four rotations folded into batch 1536,
@@ -27,8 +28,19 @@ every layer shape (-0.0 is not +0.0: the backward's mask is the output's
 sign bit), timing the two in turns. ``--window DIR`` times the reference
 objective's fp32 training step in the conv arm (``chip_smoke.
 train_reference_fp32``, fp32 K1 12 times a step) on DIR's package and on
-this tree's, one process each, in turns (DIR, this, this, DIR). ``--out``
-writes the rows as JSON. It imports no JAX; ``chip_smoke.py`` runs the
+this tree's, one process each, in turns (DIR, this, this, DIR).
+``--held GB ...`` runs alone: the bf16 conv arm's training step (K1
+forward, its torch-ops autograd backward; the blind zoo model on
+``chip_smoke``'s batch-384 batch) in a fresh process per turn that first
+takes GB of device memory with a dummy tensor, the values in turns
+forward then backward (0 40 60 60 40 0). cuDNN's heuristic mode keeps,
+per process, the first algorithm whose workspace it could allocate, so
+the memory free at a process's first step can fix the algorithms of K1's
+backward convs for its life. Each turn prints ms per step (host clock
+over 10 steps after 3 warm-ups, a synchronize as the barrier), the device
+busy ms and top kernels of one profiled step, and the step's own peak
+device memory (the held tensor not counted). ``--out`` writes the rows
+as JSON. It imports no JAX; ``chip_smoke.py`` runs the
 full checks on the real operands.
 """
 
@@ -333,6 +345,53 @@ def window_rows(tree):
     return rows
 
 
+# one --held turn: a fresh process takes `held` GB, then steps the conv arm
+_HELD = """
+import json, torch
+import chip_smoke as cs
+from ssdn_tpu_torch.train import make_train_step, state_from_params
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+held = {held!r}
+dummy = (torch.empty(int(held * 1e9), dtype=torch.uint8, device="cuda")
+         if held else None)
+cfg, params = cs.load_model("gauss5_50_blind_rgb", "cuda")
+cfg = cs.train_cfg(cs.blind_fixed_sigma(cfg), "conv_pallas")
+batch = cs.train_batch_u8()
+ts = make_train_step(cfg, device="cuda")
+torch.cuda.reset_peak_memory_stats()
+state, _, dt = cs.timed_steps(torch, ts, state_from_params(params), batch,
+                              3, 10)
+busy, top = cs.device_profile(torch, lambda: ts(state, batch))
+print("HELD " + json.dumps(dict(
+    held_gb=held, ms_per_step=dt / 10 * 1e3, device_busy_ms=busy,
+    own_peak_gb=torch.cuda.max_memory_allocated() / 1e9 - held,
+    top=[(k[:50], ms) for k, ms, _ in top[:6]])))
+"""
+
+
+def held_rows(held):
+    """The conv arm's step in a fresh process per turn, ``held`` GB taken
+    before its first step, in turns forward then backward."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = []
+    for gb in held + held[::-1]:
+        run = subprocess.run([sys.executable, "-c", _HELD.format(held=gb)],
+                             capture_output=True, text=True, cwd=here)
+        line = next((ln for ln in run.stdout.splitlines()
+                     if ln.startswith("HELD ")), None)
+        if run.returncode or line is None:
+            print(run.stdout[-2000:], run.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the turn with {gb} GB held failed")
+        rows.append(json.loads(line[len("HELD "):]))
+        r = rows[-1]
+        print(f"  conv arm, bf16 step, {gb} GB held: {r['ms_per_step']:.1f} "
+              f"ms/step, device busy {r['device_busy_ms']:.1f} ms, own peak "
+              f"{r['own_peak_gb']:.1f} GB; top: "
+              + ", ".join(f"{k} {ms:.1f}" for k, ms in r["top"]))
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -348,11 +407,21 @@ def main(argv=None) -> int:
     p.add_argument("--window", default=None, metavar="DIR",
                    help="time the conv arm's fp32 reference step on DIR's "
                         "package and this one's, in turns")
+    p.add_argument("--held", type=float, nargs="+", default=None,
+                   metavar="GB", help="only: the conv arm's step in a fresh "
+                   "process per turn with GB of device memory held first")
     p.add_argument("--out", default=None, help="write the rows as JSON")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.held:
+        print(cs.card_line())
+        rows = held_rows(args.held)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(card=cs.card_line(), held=rows), f, indent=1)
+        return 0
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line())

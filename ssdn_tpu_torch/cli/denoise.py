@@ -1,5 +1,5 @@
-"""Denoise real images with a pretrained model, on the GPU (port of
-``ssdn_tpu/cli/denoise.py``, its ``--pretrained`` / ``--tiled full`` path).
+"""Denoise real images with a trained or pretrained model, on the GPU
+(port of ``ssdn_tpu/cli/denoise.py``, its ``--tiled full`` path).
 
 The inputs are treated as ALREADY-NOISY photographs, denoised with the
 model's Bayesian posterior mean, and written back out as PNG.
@@ -13,8 +13,12 @@ Examples:
   python -m ssdn_tpu_torch.cli.denoise --pretrained gauss5_50_blind_rgb \
       --input shot.png --output out/ --device cpu
 
-Training workdirs (``--workdir``) and tiled inference (``--tiled
-sequential|sharded``) are not ported yet: they raise NotImplementedError.
+  # a training workdir's best checkpoint (cli.train)
+  python -m ssdn_tpu_torch.cli.denoise --workdir /tmp/run \
+      --input noisy_photos/ --output denoised/ --param 25
+
+Tiled inference (``--tiled sequential|sharded``) is not ported yet: it
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,8 +34,7 @@ from ssdn_tpu_torch.config import NoiseModel
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--workdir", default=None,
-                   help="training workdir (not ported yet: needs the "
-                        "trainer's checkpoints)")
+                   help="training workdir containing config.json and ckpt/")
     p.add_argument("--pretrained", default=None,
                    help="bundled pretrained model name (see "
                         "ssdn_tpu_torch.zoo.available()) or an exported "
@@ -44,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "sigma in 0..255 units / poisson lambda / impulse "
                         "alpha (default: the training config's value); "
                         "ignored by BLIND models, which estimate it")
+    p.add_argument("--which", default="auto",
+                   choices=["auto", "best", "latest"],
+                   help="checkpoint of --workdir: 'best' = highest eval "
+                        "PSNR seen during training; 'auto' prefers best")
     p.add_argument("--tiled", default="full",
                    choices=["full", "sequential", "sharded"],
                    help="only 'full' is ported so far")
@@ -71,24 +78,9 @@ def to_internal_param(cfg, value: float) -> np.ndarray:
     return np.full((1,), value, np.float32)
 
 
-def _load_model(args):
-    """(cfg, params tree, step) from --pretrained."""
-    if args.workdir:
-        raise NotImplementedError(
-            "--workdir needs the trainer's checkpoints, which come with the "
-            "Trainer slice of the port; use --pretrained"
-        )
-    if not args.pretrained:
-        raise SystemExit("--pretrained is required")
-    from ssdn_tpu_torch import zoo
-
-    cfg, params, meta = zoo.load(args.pretrained)
-    return cfg, params, int(meta.get("step", -1))
-
-
 def main(argv=None) -> None:
+    from ssdn_tpu_torch.cli.evaluate import _load_model
     from ssdn_tpu_torch.infer import denoise_image, make_denoise_fn
-    from ssdn_tpu_torch.models.blindspot_unet import params_from_jax
     from ssdn_tpu_torch.utils import list_images, load_image, save_image
     from ssdn_tpu_torch.utils.images import to_internal
 
@@ -98,7 +90,7 @@ def main(argv=None) -> None:
             f"--tiled {args.tiled} comes with the tiled-inference slice of "
             "the port; use --tiled full"
         )
-    cfg, tree, step = _load_model(args)
+    cfg, params, step = _load_model(args)
     print(f"checkpoint step: {step}")
     print(f"noise model:     {cfg.noise.describe()}")
 
@@ -109,7 +101,6 @@ def main(argv=None) -> None:
     param = to_internal_param(cfg, value)
 
     fn = make_denoise_fn(cfg, device=args.device)
-    params = params_from_jax(tree, device=args.device)
     os.makedirs(args.output, exist_ok=True)
     emitted = set()
     for path in paths:

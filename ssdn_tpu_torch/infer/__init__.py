@@ -1,3 +1,7 @@
-from ssdn_tpu_torch.infer.full import denoise_image, make_denoise_fn
+from ssdn_tpu_torch.infer.full import (
+    denoise_image,
+    evaluate_dataset,
+    make_denoise_fn,
+)
 
-__all__ = ["denoise_image", "make_denoise_fn"]
+__all__ = ["denoise_image", "evaluate_dataset", "make_denoise_fn"]

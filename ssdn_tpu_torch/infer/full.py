@@ -1,13 +1,21 @@
-"""Full-image inference (port of ``ssdn_tpu/infer/full.py``, the denoise
-half): reflect-pad to stride-32 divisibility, one forward — the four
+"""Full-image inference and PSNR evaluation (port of
+``ssdn_tpu/infer/full.py``).
+
+Denoise: reflect-pad to stride-32 divisibility, one forward — the four
 rotated branches are the "4-rotation ensembling" [B config 5] — the
 Bayesian posterior mean, crop.
 
-``evaluate_dataset`` (synthetic-noise PSNR over a dataset) comes with the
-evaluation slice.
+Evaluation (``evaluate_dataset``, the reference ``evaluate.py`` flow): load
+a clean image, inject noise at the eval setting from a generator seeded
+per image (the port draws from ``torch.Generator``, so its noisy images
+are not the JAX package's), denoise, PSNR against the clean image. Only
+mode "full" is ported; the tiled modes come with the tiled-inference
+slices.
 """
 
 from __future__ import annotations
+
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,8 +29,10 @@ from ssdn_tpu_torch.config import (
     TrainConfig,
 )
 from ssdn_tpu_torch.models import blindspot_unet
+from ssdn_tpu_torch.noise import add_noise
+from ssdn_tpu_torch.train.step import step_seed
 from ssdn_tpu_torch.utils.device import resolve_device
-from ssdn_tpu_torch.utils.images import pad_to_multiple
+from ssdn_tpu_torch.utils.images import pad_to_multiple, psnr, to_internal
 
 
 def pipeline_blindspot(pipeline: Pipeline) -> bool:
@@ -81,6 +91,14 @@ def runtime_noise_params(noise: NoiseConfig, params, vec):
     return d
 
 
+def _true_param(noise: NoiseConfig, injected: Dict) -> torch.Tensor:
+    if noise.model == NoiseModel.GAUSSIAN:
+        return injected["sigma"]
+    if noise.model == NoiseModel.POISSON:
+        return injected["lam"]
+    return injected["alpha"]
+
+
 def denoise_image(denoise_fn, params, noisy: np.ndarray, noise_param, *,
                   square: bool = False) -> np.ndarray:
     """Denoise one full-resolution image (H, W, C float32 internal range)
@@ -92,3 +110,103 @@ def denoise_image(denoise_fn, params, noisy: np.ndarray, noise_param, *,
                                      square=square)
     out = denoise_fn(params, padded[None], noise_param)
     return out[0, :h, :w].cpu().numpy()
+
+
+def evaluate_dataset(
+    cfg: TrainConfig,
+    params,
+    dataset,
+    *,
+    eval_noise: Optional[NoiseConfig] = None,
+    seed: int = 0x5EED,
+    mode: str = "full",
+    return_images: int = 0,
+    eval_batch: int = 1,
+    device=None,
+) -> Dict:
+    """Reference evaluate.py flow over a dataset: returns mean/per-image
+    PSNR of the denoised estimates plus the noisy-input baseline PSNR.
+    ``params`` are the port's tensors on ``device`` (default cuda; raises
+    without a GPU unless device="cpu").
+
+    mode: only "full" (whole image at once) is ported; "sharded",
+    "sharded-window" and "sequential" raise NotImplementedError until the
+    tiled-inference slices.
+
+    eval_batch > 1 groups same-shaped images into one forward — identical
+    per-image math (every op is batch-independent and the noise generator
+    is per-image) in fewer launches. Images stream through: a buffer per
+    shape is flushed whenever it holds eval_batch images, so host memory
+    stays O(#shapes * eval_batch images)."""
+    noise = eval_noise or cfg.noise
+    if getattr(dataset, "streaming", False):
+        raise ValueError(
+            "evaluation needs a finite dataset; 'synthetic:inf' is for "
+            "training — use 'synthetic:N[:size]' for eval"
+        )
+    if eval_batch > 1 and mode != "full":
+        raise ValueError(
+            f"eval_batch={eval_batch} requires mode='full' (got {mode!r}); "
+            "tiled modes process one image at a time"
+        )
+    if mode in ("sharded", "sharded-window", "sequential"):
+        raise NotImplementedError(
+            f"mode {mode!r} comes with the tiled-inference slices of the "
+            "port (ROADMAP queue 1: 10a sequential, 10b sharded); use "
+            "mode='full'"
+        )
+    if mode != "full":
+        raise ValueError(mode)
+    dev = resolve_device(device)
+    denoise_fn = make_denoise_fn(cfg, device=dev)
+    n = len(dataset)
+    psnrs: List[Optional[float]] = [None] * n
+    noisy_psnrs: List[Optional[float]] = [None] * n
+    images: Dict[int, Dict] = {}
+
+    def handle_one(i, clean, y_np, den):
+        psnrs[i] = psnr(den, clean)
+        noisy_psnrs[i] = psnr(y_np, clean)
+        if i < return_images:
+            images[i] = {"noisy": y_np, "denoised": den, "clean": clean}
+
+    def noisy_for(i, clean):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(step_seed(seed, i))
+        y, injected = add_noise(
+            gen, torch.as_tensor(clean, device=dev)[None], noise)
+        # KNOWN: the true injected parameter feeds the estimator; BLIND:
+        # the estimator reads its own estimate and ignores this value
+        return y[0].cpu().numpy(), _true_param(noise, injected)
+
+    def flush(chunk):
+        """chunk: list of (i, clean); one batched forward."""
+        ys, ps = zip(*(noisy_for(i, c) for i, c in chunk))
+        padded = [pad_to_multiple(y, blindspot_unet.STRIDE) for y in ys]
+        batch = np.stack([p[0] for p in padded])
+        pvec = torch.cat([torch.as_tensor(p).reshape(-1) for p in ps])
+        out = denoise_fn(params, batch, pvec).cpu().numpy()
+        for k, (i, clean) in enumerate(chunk):
+            h, w = padded[k][1]
+            handle_one(i, clean, ys[k], out[k, :h, :w])
+
+    pending: Dict[tuple, list] = {}
+    for i in range(n):
+        clean = to_internal(dataset[i])
+        buf = pending.setdefault(clean.shape, [])
+        buf.append((i, clean))
+        if len(buf) == eval_batch:
+            flush(buf)
+            buf.clear()
+    for buf in pending.values():
+        if buf:
+            flush(buf)
+    out = {
+        "psnr_mean": float(np.mean(psnrs)),
+        "psnr_per_image": psnrs,
+        "noisy_psnr_mean": float(np.mean(noisy_psnrs)),
+        "n_images": n,
+    }
+    if return_images:
+        out["images"] = [images[i] for i in sorted(images)]
+    return out

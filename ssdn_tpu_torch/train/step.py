@@ -25,6 +25,7 @@ import dataclasses
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ssdn_tpu_torch import estimator
@@ -135,8 +136,12 @@ def init_state(cfg: TrainConfig, *, device=None) -> TrainState:
 
 
 def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator."""
-    return (seed % 2 ** 31) * 2 ** 32 + step % 2 ** 32
+    """The seed of step ``step``'s generator: a 63-bit hash of (seed,
+    step). Every bit depends on both, because the CPU generator keeps only
+    the low 32 bits of its seed (packing seed and step side by side made
+    the CPU's noise ignore the seed)."""
+    ss = np.random.SeedSequence([seed % 2 ** 64, step % 2 ** 64])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
 class TrainStep:

@@ -180,7 +180,12 @@ def test_cli_denoise_on_cpu(tmp_path):
     out = outdir / "shot_denoised.png"
     assert out.exists()
     assert load_image(str(out)).shape == (64, 64, 3)
-    for extra in (["--tiled", "sequential"], ["--workdir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="slice"):
-            main(["--device", "cpu", "--pretrained", "gauss25_rgb",
-                  "--input", str(inp), "--output", str(outdir), *extra])
+    with pytest.raises(NotImplementedError, match="slice"):
+        main(["--device", "cpu", "--pretrained", "gauss25_rgb",
+              "--input", str(inp), "--output", str(outdir),
+              "--tiled", "sequential"])
+    # --workdir is ported (tests/test_torch_train_cli.py); a directory that
+    # holds no training run is refused
+    with pytest.raises(FileNotFoundError):
+        main(["--device", "cpu", "--workdir", str(tmp_path / "empty"),
+              "--input", str(inp), "--output", str(outdir)])

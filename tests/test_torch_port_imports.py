@@ -33,10 +33,24 @@ def _imported_roots(path):
             yield node.lineno, node.module or ""
 
 
+# the modules of the training entry point (data, native sampler, Trainer,
+# evaluation and the CLIs), beside the serving and training-step modules
+TRAINER_SLICE = (
+    "data/__init__.py", "data/synthetic.py", "data/datasets.py",
+    "data/sampler.py", "data/tooling.py", "native/__init__.py",
+    "native/patch_sampler.cpp", "infer/full.py", "train/loop.py",
+    "cli/train.py", "cli/evaluate.py", "cli/denoise.py",
+    "cli/dataset_tool.py",
+)
+
+
 def test_port_files_exist():
     files = _port_files()
     assert os.path.exists(files[0]), "chip_smoke.py is missing"
     assert len(files) > 15
+    missing = [n for n in TRAINER_SLICE
+               if not os.path.exists(os.path.join(REPO, "ssdn_tpu_torch", n))]
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -57,6 +71,11 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "ssdn_tpu_torch.kernels.nin_head, ssdn_tpu_torch.noise, "
         "ssdn_tpu_torch.train, ssdn_tpu_torch.train.step, "
         "ssdn_tpu_torch.estimator.core\n"
+        "import ssdn_tpu_torch.data, ssdn_tpu_torch.native, "
+        "ssdn_tpu_torch.train.loop, ssdn_tpu_torch.cli.train, "
+        "ssdn_tpu_torch.cli.evaluate, ssdn_tpu_torch.cli.dataset_tool\n"
+        "import ssdn_tpu_torch.native as n\n"
+        "assert n._lib is None and n._lib_error is None, 'built at import'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} or m == 'ssdn_tpu_torch.kernels._build']\n"
         "print(bad)\n"
