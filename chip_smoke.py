@@ -66,7 +66,29 @@ which fails the run (non-zero exit) on any error:
    conv arm's workdir through K1. It records the Trainer's own patches/s
    beside [5]'s fixed-batch window, the device idle share over ten
    profiled Trainer steps, and the host samplers' rates. The kernels
-   line's ``launches_by_path`` gains ``trainer``.
+   line's ``launches_by_path`` gains ``trainer``; [7]'s workdirs stay
+   for [8];
+8. the tiled and aux paths: (a) ``tiled_denoise_sequential`` (windows of
+   512 + 2 x 320 columns) of a smooth 2048x1536 image at sigma 25 with
+   ``gauss25_rgb`` (fp32) in each arm, held to the lax arm's tiled
+   result and to the arm's own full-image ``denoise_image`` at 1e-4
+   (whether the bits match is printed), each arm's full image held to the
+   lax arm's at 1e-4, K1 launching 24 times per window in the conv arm
+   and K2 once per window in the head arm, counted around each sequential
+   call; (b) the same with ``gauss5_50_blind_rgb`` (bf16): each kernel
+   arm against the lax arm at [4]'s bar, the PSNR 3 dB over the noisy
+   one, the tiled-vs-full PSNR gap printed (the blind estimate is per
+   window); (c) peak device memory and time of the full image and of
+   sequential windows at 2048x1536, and of sequential windows at
+   4032x3024 (head arm, fp32); (d) ``cli.denoise --pretrained gauss25_rgb
+   --tiled sequential`` on a 2048x1536 PNG writes the library call's PNG
+   bytes; (e) ``tools.blind_calibration`` on ``gauss5_50_blind_rgb`` at
+   sigma 5, 15, 25, 40, 50 (8 images of 128 px each): the estimates rise
+   with the true value. (d) and (e) run the artifacts in their recorded
+   arm, lax/lax, and launch no kernel; (f) ``tools.export_pretrained`` of [7]'s conv-arm workdir,
+   loaded with ``zoo.load``, serves [7]'s 768x512 request bit for bit as
+   ``cli.denoise --workdir`` did. The kernels line's ``launches_by_path``
+   gains ``tiled`` for K1 and K2.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits with code 2 and
@@ -80,6 +102,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -116,6 +139,13 @@ TRAINER_DIR = "build/chip_smoke_trainer"   # under the checkout, gitignored
 # FAULTS) must read above the bar, or the bar could not tell them.
 RESUME_BAR = 1e-3
 RESUME_FAULTS = ("opt_state_zeroed", "batches_from_step_0")
+# the tiled and aux paths ([8]): sequential windows of TILE_W + 2 * HALO
+# columns on a wide photo and on a 12 MP camera frame (H, W)
+TILE_W, HALO = 512, 320
+TILED_HW = (1536, 2048)
+CAMERA_HW = (3024, 4032)
+TILED_REPS = 3       # timed calls per row of [8c], after one warm-up
+CAL_IMAGES, CAL_SIZE = 8, 128   # blind_calibration's images per value
 
 
 class SmokeFailure(Exception):
@@ -1573,13 +1603,14 @@ def sampler_rates():
     return out
 
 
-def run_trainer(torch, report):
+def run_trainer(torch, report, kept):
     """The Trainer path: the conv arm through ``cli.train.main`` (K1, the
     native sampler), the head arm through ``Trainer`` (K2' and K3 per step,
     K2 per eval; the streaming sampler), each TRAINER_STEPS steps with
     eval and snapshots, counts read around each; then exact resume (head
     arm, preempted after its step-20 snapshot) and ``cli.denoise
-    --workdir`` on the conv arm's workdir."""
+    --workdir`` on the conv arm's workdir, which stays (with the request
+    it served, in ``kept``) for [8f]."""
     import shutil
 
     import ssdn_tpu_torch.infer as infer
@@ -1723,6 +1754,8 @@ def run_trainer(torch, report):
     finally:
         infer.denoise_image = real_denoise
     launches["denoise"] = read_counts()
+    kept.update(conv_wd=conv_wd, request=f"{TRAINER_DIR}/in/kodak.png",
+                served=got[0])
     written = load_image(f"{TRAINER_DIR}/out/kodak_denoised.png")
     check(len(got) == 1 and got[0].shape == (*KODAK, 3)
           and bool(np.isfinite(got[0]).all()),
@@ -1770,7 +1803,281 @@ def run_trainer(torch, report):
     print(f"  Trainer path launches: {launches}")
     report["trainer"] = out
     report["trainer_launches"] = launches
-    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    return launches
+
+
+
+# ------------------------- the tiled and aux paths -------------------------
+
+TILED_DIR = "build/chip_smoke_tiled"   # under the checkout, gitignored
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_image(h, w):
+    """(clean, noisy at sigma 25) of TILED_HW, internal range; CAMERA_HW
+    is the same image reflect-padded to the camera frame (only its noisy
+    image is used: [8c] times and measures it)."""
+    if (h, w) == CAMERA_HW:
+        _, noisy = tiled_image(*TILED_HW)
+        return None, np.pad(noisy, [(0, h - TILED_HW[0]),
+                                    (0, w - TILED_HW[1]), (0, 0)], "reflect")
+    clean = clean_image(800, h, w)
+    noisy = clean + np.random.default_rng(801).normal(
+        0, 25 / 255, clean.shape).astype(np.float32)
+    return clean, noisy
+
+
+def n_windows(w):
+    """Windows of a sequential call on an image w columns wide."""
+    pw = -(-w // 32) * 32   # stride-32 padded width
+    return -(-pw // TILE_W)
+
+
+def tiled_arms(torch, models, report):
+    """[8a] fp32 ``gauss25_rgb`` and [8b] bf16 ``gauss5_50_blind_rgb``:
+    ``tiled_denoise_sequential`` of a 2048x1536 image in each arm, counts
+    set to 0 just before each call and read just after it. Every arm's
+    tiled result against the lax arm's at [4]'s bar (fp32 1e-4, bf16
+    4/255): these window shapes (1152x1536, rotated 1536x1152) are ones
+    [4] never runs. fp32 also: each arm against its own ``denoise_image``
+    at 1e-4, and each arm's full image against the lax arm's at 1e-4;
+    bf16: the tiled-vs-full PSNR gap (the blind estimate is per window)
+    reported. Returns the tiled path's launches."""
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+    from ssdn_tpu_torch.utils.images import psnr
+
+    wins = n_windows(TILED_HW[1])
+    clean, noisy = tiled_image(*TILED_HW)
+    pv = sigma_vec(25.0)
+    noisy_db = psnr(noisy, clean)
+    launches, rows = {"k1": 0, "k2": 0}, []
+    for name in MODELS:
+        cfg, params = models[name]
+        bf16 = cfg.model.compute_dtype == "bfloat16"
+        tol = 4 / 255 if bf16 else 1e-4   # [4]'s bars against the lax arm
+        seqs, wholes = {}, {}
+        for arm in ARMS:   # lax first: the others are held against it
+            c = with_arm(cfg, arm)
+            t0 = time.perf_counter()
+            reset_counts()
+            seq = seqs[arm] = tiled_denoise_sequential(
+                c, params, noisy, pv, tile_w=TILE_W, halo=HALO)
+            counts = read_counts()
+            secs = time.perf_counter() - t0
+            for k in launches:
+                launches[k] += counts[k]
+            want = {"lax": (0, 0), "head_pallas": (0, wins),
+                    "conv_pallas": (2 * K1_PER_TRUNK * wins, 0)}[arm]
+            got = (counts["k1"], counts["k2"])
+            check(got == want, f"tiled {name}/{arm}: launches K1, K2 {got}, "
+                               f"expected {want}")
+            check(seq.shape == clean.shape and bool(np.isfinite(seq).all()),
+                  f"tiled {name}/{arm}: shape {seq.shape} or not finite")
+            row = dict(model=name, arm=arm, windows=wins, k1=got[0],
+                       k2=got[1], seconds=secs, tol_vs_lax=tol,
+                       psnr_gain_db=psnr(seq, clean) - noisy_db)
+            check(row["psnr_gain_db"] >= 3.0, f"tiled {name}/{arm}: PSNR gain "
+                                              f"{row['psnr_gain_db']:.2f} dB")
+            d = row["max_abs_vs_lax"] = float(np.abs(seq - seqs["lax"]).max())
+            check(d <= tol, f"tiled {name}/{arm}: differs from the lax arm's "
+                            f"tiled result by {d:.3e} > {tol:.1e}")
+            if not bf16 or arm == "lax":
+                whole = wholes[arm] = full.denoise_image(
+                    full.make_denoise_fn(c), params, noisy, pv)
+                row.update(max_abs_vs_full=float(np.abs(seq - whole).max()),
+                           bits_match_full=bool(np.array_equal(seq, whole)),
+                           full_psnr_gain_db=psnr(whole, clean) - noisy_db)
+            if not bf16:
+                check(row["max_abs_vs_full"] <= 1e-4,
+                      f"tiled {name}/{arm}: differs from the full image by "
+                      f"{row['max_abs_vs_full']:.3e} > 1e-4")
+                dw = row["full_max_abs_vs_lax"] = float(
+                    np.abs(whole - wholes["lax"]).max())
+                check(dw <= tol, f"full {name}/{arm}: differs from the lax "
+                                 f"arm's full image by {dw:.3e} > {tol:.1e}")
+            rows.append(row)
+            extra = f"|arm - lax| {d:.2e}"
+            if not bf16:
+                extra += (f" (full image {row['full_max_abs_vs_lax']:.2e}), "
+                          f"|tiled - full| {row['max_abs_vs_full']:.2e}, bits "
+                          f"match: {row['bits_match_full']}")
+            elif arm == "lax":
+                extra += (f", tiled - full PSNR "
+                          f"{row['psnr_gain_db'] - row['full_psnr_gain_db']:+.3f}"
+                          " dB (per-window blind estimate)")
+            print(f"  [8{'b' if bf16 else 'a'}] {name:<20} {arm:<12} "
+                  f"{wins} windows, K1 {got[0]}, K2 {got[1]}, gain "
+                  f"{row['psnr_gain_db']:.2f} dB, {extra} ({secs:.1f} s)")
+    report["tiled"] = rows
+    return launches
+
+
+def tiled_memory(torch, models, report):
+    """[8c] the head arm (the fastest fp32 arm), ``gauss25_rgb``: peak
+    device memory and time per call (CUDA events around calls that end
+    in the host copy) of the full image and sequential windows at
+    2048x1536, and sequential windows at 4032x3024."""
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+
+    cfg, params = models["gauss25_rgb"]
+    c = with_arm(cfg, "head_pallas")
+    fn = full.make_denoise_fn(c)
+    pv = sigma_vec(25.0)
+    rows = []
+    for mode, (h, w) in (("full", TILED_HW), ("sequential", TILED_HW),
+                         ("sequential", CAMERA_HW)):
+        y = tiled_image(h, w)[1]
+        if mode == "full":
+            call = lambda: full.denoise_image(fn, params, y, pv)
+        else:
+            call = lambda: tiled_denoise_sequential(c, params, y, pv,
+                                                    tile_w=TILE_W, halo=HALO)
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, call, TILED_REPS)
+        peak = torch.cuda.max_memory_allocated()
+        rows.append(dict(mode=mode, size=f"{w}x{h}",
+                         windows=n_windows(w) if mode != "full" else 1,
+                         ms=ms, mp_per_s=h * w / 1e6 / (ms / 1e3),
+                         peak_gb=peak / 1e9, peak_above_base_gb=(peak - base) / 1e9))
+        r = rows[-1]
+        print(f"  [8c] head_pallas fp32 {mode:<10} {r['size']:<9} "
+              f"{r['windows']} window(s): {ms:8.1f} ms, {r['mp_per_s']:.2f} "
+              f"MP/s, peak {r['peak_gb']:.2f} GB ({r['peak_above_base_gb']:.2f}"
+              " above what was allocated before)")
+    full_r, seq_r, cam_r = rows
+    ratios = dict(
+        seq_over_full_ms=seq_r["ms"] / full_r["ms"],
+        seq_over_full_peak=seq_r["peak_above_base_gb"]
+        / full_r["peak_above_base_gb"],
+        camera_over_seq_peak=cam_r["peak_above_base_gb"]
+        / seq_r["peak_above_base_gb"])
+    print("  [8c] ratios: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in ratios.items()))
+    report["tiled_memory"] = dict(rows=rows, ratios=ratios)
+
+
+def tiled_cli(torch, models, report):
+    """[8d] ``cli.denoise --pretrained gauss25_rgb --tiled sequential`` on a
+    2048x1536 PNG against the library call in the artifact's recorded arm
+    (lax/lax: no kernel launches): the same PNG bytes."""
+    from ssdn_tpu_torch.cli.denoise import default_param
+    from ssdn_tpu_torch.cli.denoise import main as denoise_main
+    from ssdn_tpu_torch.cli.denoise import to_internal_param
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+    from ssdn_tpu_torch.utils import load_image, save_image
+    from ssdn_tpu_torch.utils.images import to_internal
+
+    cfg, params = models["gauss25_rgb"]
+    src = f"{TILED_DIR}/in/wide.png"
+    save_image(src, tiled_image(*TILED_HW)[1])
+    t0 = time.perf_counter()
+    denoise_main(["--pretrained", "gauss25_rgb", "--input", src, "--output",
+                  f"{TILED_DIR}/cli", "--tiled", "sequential", "--tile-w",
+                  str(TILE_W), "--halo", str(HALO), "--device", DEVICE])
+    secs = time.perf_counter() - t0
+    lib = tiled_denoise_sequential(
+        cfg, params, to_internal(load_image(src)),
+        to_internal_param(cfg, default_param(cfg)), tile_w=TILE_W, halo=HALO)
+    save_image(f"{TILED_DIR}/lib/wide_denoised.png", lib)
+    with open(f"{TILED_DIR}/cli/wide_denoised.png", "rb") as a, \
+            open(f"{TILED_DIR}/lib/wide_denoised.png", "rb") as b:
+        same = a.read() == b.read()
+    report["tiled_cli"] = dict(
+        arm=f"{cfg.model.conv_backend}/{cfg.model.head_backend}",
+        same_png_bytes=same, seconds=secs)
+    print(f"  [8d] cli.denoise --pretrained gauss25_rgb --tiled sequential "
+          f"(arm {report['tiled_cli']['arm']}): {secs:.1f} s, the library "
+          f"call's PNG bytes: {same}")
+    check(same, "cli.denoise --tiled sequential wrote other PNG bytes than "
+                "the library call")
+
+
+def calibration(torch, report):
+    """[8e] ``tools.blind_calibration`` on ``gauss5_50_blind_rgb`` at its
+    default values, in the artifact's recorded arm (lax/lax: no kernel
+    launches): the estimates rise with the true value, every PSNR is
+    finite; the table goes into the report."""
+    import contextlib
+    import io
+
+    from ssdn_tpu_torch.tools import blind_calibration
+
+    out = f"{TILED_DIR}/calibration.json"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        blind_calibration.main([
+            "gauss5_50_blind_rgb", "--images", str(CAL_IMAGES), "--size",
+            str(CAL_SIZE), "--device", DEVICE, "--json-out", out])
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        rows = json.load(f)
+    table = buf.getvalue()
+    report["calibration"] = dict(rows=rows, table=table, seconds=secs)
+    print(f"  [8e] blind_calibration gauss5_50_blind_rgb, {CAL_IMAGES} images "
+          f"of {CAL_SIZE} px per value ({secs:.1f} s):")
+    for line in table.splitlines():
+        print(f"       {line}")
+    ests = [r["est_mean"] for r in rows]
+    check([r["true"] for r in rows] == [5, 15, 25, 40, 50],
+          f"calibration values {[r['true'] for r in rows]}")
+    check(all(b > a for a, b in zip(ests, ests[1:])),
+          f"blind estimates do not rise with the true value: {ests}")
+    check(all(np.isfinite(r["psnr"]) for r in rows),
+          f"calibration PSNR not finite: {rows}")
+
+
+def export_served(torch, kept, report):
+    """[8f] ``tools.export_pretrained`` on [7]'s conv-arm workdir; the
+    port's ``zoo.load`` of the artifact serves [7]'s 768x512 request
+    through K1, bit for bit what ``cli.denoise --workdir`` served."""
+    from ssdn_tpu_torch import zoo
+    from ssdn_tpu_torch.cli.denoise import default_param, to_internal_param
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.models.blindspot_unet import params_from_jax
+    from ssdn_tpu_torch.tools import export_pretrained
+    from ssdn_tpu_torch.utils import load_image
+    from ssdn_tpu_torch.utils.images import to_internal
+
+    npz = f"{TILED_DIR}/conv_arm.npz"
+    export_pretrained.main([kept["conv_wd"], npz, "--device", DEVICE,
+                            "--note", "chip_smoke [7] conv arm"])
+    cfg, tree, meta = zoo.load(npz)
+    params = params_from_jax(tree, device=DEVICE)
+    reset_counts()
+    got = full.denoise_image(full.make_denoise_fn(cfg), params,
+                             to_internal(load_image(kept["request"])),
+                             to_internal_param(cfg, default_param(cfg)))
+    counts = read_counts()
+    same = bool(np.array_equal(got, kept["served"]))
+    report["export"] = dict(meta=meta, launches=counts, bits_match=same,
+                            max_abs=float(np.abs(got - kept["served"]).max()))
+    print(f"  [8f] export_pretrained of [7]'s conv-arm workdir (step "
+          f"{meta['step']}): served 768x512 through K1 ({counts['k1']} "
+          f"launches), bits of cli.denoise --workdir: {same}")
+    check(counts["k1"] == 2 * K1_PER_TRUNK,
+          f"exported model: launches {counts}")
+    check(same, "the exported artifact serves another image than its "
+                f"workdir: max abs {report['export']['max_abs']:.3e}")
+
+
+def run_tiled(torch, models, kept, report):
+    """[8]: the sub-steps in order; returns the tiled path's launches."""
+    t0 = time.perf_counter()
+    launches = tiled_arms(torch, models, report)
+    tiled_memory(torch, models, report)
+    tiled_cli(torch, models, report)
+    calibration(torch, report)
+    export_served(torch, kept, report)
+    report["tiled_launches"] = launches
+    report["tiled_seconds"] = time.perf_counter() - t0
+    print(f"  tiled path launches: K1 {launches['k1']}, K2 {launches['k2']}; "
+          f"[8] took {report['tiled_seconds']:.1f} s")
     return launches
 
 
@@ -1843,7 +2150,8 @@ def main(argv=None) -> int:
     print(f"[7] main path, the Trainer: {TRAINER_STEPS} steps x 2 arms at "
           f"batch {TRAIN_BATCH} (eval, snapshots), resume, cli.denoise "
           "--workdir")
-    trainer = run_trainer(torch, report)
+    kept = {}
+    trainer = run_trainer(torch, report, kept)
     check(all(trainer[arm][k] > 0 for arm, ks in (
         ("conv", ("k1",)), ("head", ("k2", "k2_save_h1", "k3"))) for k in ks),
         f"a kernel was not launched on the Trainer path: {trainer}")
@@ -1869,6 +2177,22 @@ def main(argv=None) -> int:
                 entry[key] = {f: t[f] for f in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "launches_per_step")}
+
+    print(f"[8] the tiled and aux paths: sequential windows of {TILE_W} + 2 x "
+          f"{HALO} columns (2048x1536, 3 arms x 2 models; 4032x3024), "
+          "cli.denoise --tiled sequential, blind_calibration, "
+          "export_pretrained")
+    tiled = run_tiled(torch, models, kept, report)
+    check(tiled["k1"] > 0 and tiled["k2"] > 0,
+          f"a kernel was not launched on the tiled path: {tiled}")
+    for entry in kernel_line:
+        kind = {"shifted_conv3x3_bias_act": "k1",
+                "fused_nin_head": "k2"}.get(entry["name"])
+        if kind:
+            entry["launches_by_path"]["tiled"] = tiled[kind]
+            entry["launches"] += tiled[kind]
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    shutil.rmtree(TILED_DIR, ignore_errors=True)
 
     if args.report:
         with open(args.report, "w") as f:

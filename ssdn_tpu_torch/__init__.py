@@ -2,12 +2,14 @@
 
 A second package beside the JAX one, module for module: the JAX package
 is the reference and this package imports nothing of it (nor of JAX).
-What is ported so far is the serving path (pretrained denoise), the
-training step and the training entry point (data, Trainer, evaluation,
-CLIs); tiled inference and data parallelism are not:
+Everything the JAX package does on one device is ported: the serving
+path (pretrained denoise, full-image and sequential tiled), the training
+step, the training entry point (data, Trainer, evaluation, CLIs), the
+zoo's writer and the tools; data parallelism and sharded tiling are not:
 
   config.py   a copy of the JAX package's config (the zoo JSON parses the same)
-  zoo.py      reads the bundled ``ssdn_tpu/pretrained/*.npz`` artifacts by path
+  zoo.py      reads the bundled ``ssdn_tpu/pretrained/*.npz`` artifacts by
+              path, and writes artifacts in the same layout
   ops/        shifted conv / pool / upsample, rotation fold (torch ops)
   kernels/    hand-written CUDA kernels K1 (shifted conv), K2/K2' (1x1 head
               forward) and K3 (its backward), each with its plain PyTorch
@@ -20,9 +22,14 @@ CLIs); tiled inference and data parallelism are not:
   native/     the C++ crop gatherer, built with g++ on first use
   train/      the training step (four pipelines, Adam, schedules) and the
               Trainer (guard, eval, checkpoints, exact resume)
-  infer/      full-image denoise and ``evaluate_dataset``
+  infer/      full-image denoise, sequential tiled denoise (one window of
+              ``tile_w + 2*halo`` columns at a time) and ``evaluate_dataset``
+  utils/      images, device selection, and the debug helpers (profiler
+              trace, anomaly mode, step timer, finiteness check)
   cli/        ``python -m ssdn_tpu_torch.cli.{train,evaluate,denoise,
               dataset_tool}``
+  tools/      ``python -m ssdn_tpu_torch.tools.{export_pretrained,
+              blind_calibration,parity_check}``
 
 Tensors at the public functions are NHWC, as in the JAX package; inside,
 NCHW in ``channels_last`` memory. Entry points run on the GPU unless the

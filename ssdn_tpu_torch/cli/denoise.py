@@ -1,5 +1,5 @@
 """Denoise real images with a trained or pretrained model, on the GPU
-(port of ``ssdn_tpu/cli/denoise.py``, its ``--tiled full`` path).
+(port of ``ssdn_tpu/cli/denoise.py``).
 
 The inputs are treated as ALREADY-NOISY photographs, denoised with the
 model's Bayesian posterior mean, and written back out as PNG.
@@ -17,8 +17,12 @@ Examples:
   python -m ssdn_tpu_torch.cli.denoise --workdir /tmp/run \
       --input noisy_photos/ --output denoised/ --param 25
 
-Tiled inference (``--tiled sequential|sharded``) is not ported yet: it
-raises NotImplementedError.
+  # bounded-memory tiling for huge scans: one window of tile-w + 2*halo
+  # columns on the card at a time
+  python -m ssdn_tpu_torch.cli.denoise ... --tiled sequential --tile-w 512
+
+``--tiled sharded`` comes with the parallel slice of the port: it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -53,7 +57,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "PSNR seen during training; 'auto' prefers best")
     p.add_argument("--tiled", default="full",
                    choices=["full", "sequential", "sharded"],
-                   help="only 'full' is ported so far")
+                   help="'sequential' bounds memory on one device; "
+                        "'sharded' is not ported yet")
+    p.add_argument("--halo", type=int, default=320,
+                   help="window overlap in px for --tiled sequential; "
+                        ">= 320 is exact (see infer/tiled.py)")
+    p.add_argument("--tile-w", type=int, default=512)
     p.add_argument("--suffix", default="_denoised",
                    help="appended to each output filename stem")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -81,14 +90,16 @@ def to_internal_param(cfg, value: float) -> np.ndarray:
 def main(argv=None) -> None:
     from ssdn_tpu_torch.cli.evaluate import _load_model
     from ssdn_tpu_torch.infer import denoise_image, make_denoise_fn
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
     from ssdn_tpu_torch.utils import list_images, load_image, save_image
     from ssdn_tpu_torch.utils.images import to_internal
 
     args = build_parser().parse_args(argv)
-    if args.tiled != "full":
+    if args.tiled == "sharded":
         raise NotImplementedError(
-            f"--tiled {args.tiled} comes with the tiled-inference slice of "
-            "the port; use --tiled full"
+            "--tiled sharded comes with the next slice of the port (ROADMAP "
+            "queue 1: 9 parallel and 10b sharded tiling); use --tiled full "
+            "or sequential"
         )
     cfg, params, step = _load_model(args)
     print(f"checkpoint step: {step}")
@@ -100,12 +111,19 @@ def main(argv=None) -> None:
     value = args.param if args.param is not None else default_param(cfg)
     param = to_internal_param(cfg, value)
 
-    fn = make_denoise_fn(cfg, device=args.device)
+    # the sequential path builds its own per-window function
+    fn = (make_denoise_fn(cfg, device=args.device) if args.tiled == "full"
+          else None)
     os.makedirs(args.output, exist_ok=True)
     emitted = set()
     for path in paths:
         noisy = to_internal(load_image(path, grayscale=cfg.grayscale))
-        den = denoise_image(fn, params, noisy, param)
+        if args.tiled == "full":
+            den = denoise_image(fn, params, noisy, param)
+        else:
+            den = tiled_denoise_sequential(cfg, params, noisy, param,
+                                           tile_w=args.tile_w, halo=args.halo,
+                                           device=args.device)
         stem, ext = os.path.splitext(os.path.basename(path))
         out_path = os.path.join(args.output, f"{stem}{args.suffix}.png")
         if out_path in emitted:

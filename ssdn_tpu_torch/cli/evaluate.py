@@ -7,8 +7,9 @@ Example:
   python -m ssdn_tpu_torch.cli.evaluate --workdir /tmp/run1 \\
       --dataset /data/kodak --save-images /tmp/run1/denoised
 
-Tiled inference (``--tiled`` other than ``full``) and ``--data-parallel``
-are not ported yet: they raise NotImplementedError.
+``--tiled sequential`` denoises each image in overlap windows on one
+device (bounded memory). The sharded modes and ``--data-parallel`` come
+with the parallel slice of the port: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,9 +50,13 @@ def main(argv=None) -> None:
         "--tiled",
         default="full",
         choices=["full", "sharded", "sharded-window", "sequential"],
-        help="only 'full' is ported so far; the tiled modes come with the "
-             "tiled-inference slices",
+        help="'sequential' = overlap tiles on one device (bounded "
+             "memory); the sharded modes are not ported yet",
     )
+    p.add_argument("--halo", type=int, default=320,
+                   help="tile overlap in px for --tiled sequential; >= 320 "
+                        "is exact (see infer/tiled.py)")
+    p.add_argument("--tile-w", type=int, default=512)
     p.add_argument("--eval-batch", type=int, default=1,
                    help="batch same-shaped images per forward (mode 'full'; "
                         "identical per-image math, higher throughput)")
@@ -88,7 +93,7 @@ def main(argv=None) -> None:
         ds = open_dataset(name, grayscale=cfg.grayscale)
         res = evaluate_dataset(
             cfg, params, ds, eval_noise=eval_noise, seed=args.seed,
-            mode=args.tiled,
+            mode=args.tiled, halo=args.halo, tile_w=args.tile_w,
             eval_batch=args.eval_batch, device=args.device,
             return_images=len(ds) if args.save_images else 0,
         )

@@ -8,9 +8,9 @@ Bayesian posterior mean, crop.
 Evaluation (``evaluate_dataset``, the reference ``evaluate.py`` flow): load
 a clean image, inject noise at the eval setting from a generator seeded
 per image (the port draws from ``torch.Generator``, so its noisy images
-are not the JAX package's), denoise, PSNR against the clean image. Only
-mode "full" is ported; the tiled modes come with the tiled-inference
-slices.
+are not the JAX package's), denoise, PSNR against the clean image. Modes
+"full" and "sequential" (``infer.tiled``) are ported; the sharded modes
+come with the parallel slice.
 """
 
 from __future__ import annotations
@@ -120,6 +120,8 @@ def evaluate_dataset(
     eval_noise: Optional[NoiseConfig] = None,
     seed: int = 0x5EED,
     mode: str = "full",
+    halo: int = 320,
+    tile_w: int = 512,
     return_images: int = 0,
     eval_batch: int = 1,
     device=None,
@@ -129,9 +131,10 @@ def evaluate_dataset(
     ``params`` are the port's tensors on ``device`` (default cuda; raises
     without a GPU unless device="cpu").
 
-    mode: only "full" (whole image at once) is ported; "sharded",
-    "sharded-window" and "sequential" raise NotImplementedError until the
-    tiled-inference slices.
+    mode: "full" (whole image at once) or "sequential" (overlap windows
+    of ``tile_w + 2*halo`` columns looped on one device,
+    ``infer.tiled.tiled_denoise_sequential``); "sharded" and
+    "sharded-window" raise NotImplementedError until the parallel slice.
 
     eval_batch > 1 groups same-shaped images into one forward — identical
     per-image math (every op is batch-independent and the noise generator
@@ -149,16 +152,15 @@ def evaluate_dataset(
             f"eval_batch={eval_batch} requires mode='full' (got {mode!r}); "
             "tiled modes process one image at a time"
         )
-    if mode in ("sharded", "sharded-window", "sequential"):
+    if mode in ("sharded", "sharded-window"):
         raise NotImplementedError(
-            f"mode {mode!r} comes with the tiled-inference slices of the "
-            "port (ROADMAP queue 1: 10a sequential, 10b sharded); use "
-            "mode='full'"
+            f"mode {mode!r} comes with the next slice of the port (ROADMAP "
+            "queue 1: 9 parallel and 10b sharded tiling); use mode='full' "
+            "or 'sequential'"
         )
-    if mode != "full":
+    if mode not in ("full", "sequential"):
         raise ValueError(mode)
     dev = resolve_device(device)
-    denoise_fn = make_denoise_fn(cfg, device=dev)
     n = len(dataset)
     psnrs: List[Optional[float]] = [None] * n
     noisy_psnrs: List[Optional[float]] = [None] * n
@@ -190,17 +192,28 @@ def evaluate_dataset(
             h, w = padded[k][1]
             handle_one(i, clean, ys[k], out[k, :h, :w])
 
-    pending: Dict[tuple, list] = {}
-    for i in range(n):
-        clean = to_internal(dataset[i])
-        buf = pending.setdefault(clean.shape, [])
-        buf.append((i, clean))
-        if len(buf) == eval_batch:
-            flush(buf)
-            buf.clear()
-    for buf in pending.values():
-        if buf:
-            flush(buf)
+    if mode == "sequential":
+        from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+
+        for i in range(n):
+            clean = to_internal(dataset[i])
+            y_np, param = noisy_for(i, clean)
+            handle_one(i, clean, y_np, tiled_denoise_sequential(
+                cfg, params, y_np, param, tile_w=tile_w, halo=halo,
+                device=dev))
+    else:
+        denoise_fn = make_denoise_fn(cfg, device=dev)
+        pending: Dict[tuple, list] = {}
+        for i in range(n):
+            clean = to_internal(dataset[i])
+            buf = pending.setdefault(clean.shape, [])
+            buf.append((i, clean))
+            if len(buf) == eval_batch:
+                flush(buf)
+                buf.clear()
+        for buf in pending.values():
+            if buf:
+                flush(buf)
     out = {
         "psnr_mean": float(np.mean(psnrs)),
         "psnr_per_image": psnrs,

@@ -1,3 +1,9 @@
+from ssdn_tpu_torch.utils.debug import (
+    StepTimer,
+    assert_finite_tree,
+    debug_nans,
+    profile_trace,
+)
 from ssdn_tpu_torch.utils.device import resolve_device
 from ssdn_tpu_torch.utils.images import (
     from_internal,
@@ -10,6 +16,10 @@ from ssdn_tpu_torch.utils.images import (
 )
 
 __all__ = [
+    "StepTimer",
+    "assert_finite_tree",
+    "debug_nans",
+    "profile_trace",
     "resolve_device",
     "from_internal",
     "list_images",

@@ -7,7 +7,9 @@ The artifacts are data shared with the JAX package: they stay in
 params come back as the same host-numpy ``{layer: {"w": HWIO, "b": ...}}``
 tree the JAX package's ``zoo.load`` returns;
 ``models.blindspot_unet.params_from_jax`` turns it into the port's tensors.
-Writing artifacts (``save``) waits for the export-tool slice.
+``save`` writes the same layout from the port's tensors (conv weights back
+to HWIO), so either package loads what the other writes;
+``tools/export_pretrained.py`` makes one from a training workdir.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from ssdn_tpu_torch.config import TrainConfig, train_config_from_json
+from ssdn_tpu_torch.config import TrainConfig, to_json, train_config_from_json
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRETRAINED_DIR = os.path.join(_REPO, "ssdn_tpu", "pretrained")
@@ -72,3 +74,26 @@ def load(name_or_path: str) -> Tuple[TrainConfig, Any, dict]:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return cfg, params, meta
+
+
+def save(path: str, cfg: TrainConfig, params: Any,
+         meta: dict | None = None) -> None:
+    """Write a pretrained artifact (inverse of load) from the port's
+    ``{layer: {leaf: tensor}}`` params: ``<layer>/<leaf>`` arrays in the
+    JAX layout (``params_to_jax``), ``__config__`` and ``__meta__`` JSON."""
+    from ssdn_tpu_torch.models.blindspot_unet import params_to_jax
+
+    for layer, leaf in params.items():
+        if str(layer).startswith("__") or not isinstance(leaf, dict):
+            raise ValueError(f"unsupported params path {layer!r}")
+    flat: Dict[str, np.ndarray] = {
+        f"{layer}/{key}": v
+        for layer, leaf in params_to_jax(params).items()
+        for key, v in leaf.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(
+        path,
+        **flat,
+        **{_CONFIG_KEY: np.str_(to_json(cfg)),
+           _META_KEY: np.str_(json.dumps(meta or {}))},
+    )

@@ -784,3 +784,34 @@ def test_trainer_runs_on_the_card_through_the_kernels(cuda, arm, tmp_path):
     with open(tmp_path / "metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     assert all(np.isfinite(r["loss"]) for r in rows if r["prefix"] == "train")
+
+
+@pytest.mark.parametrize("arm", ["lax", "head_pallas", "conv_pallas"])
+def test_sequential_tiling_equals_full_on_the_card(cuda, arm):
+    """Sequential tiled denoise (tile_w 128, the exact halo) of a 32x1024
+    image against the full-image path in each arm, fp32 at narrow widths:
+    8 windows of 32x768, so K1 launches 24 times per window in the conv arm
+    (two trunk calls: the window is not square) and K2 once per window in
+    the head arm."""
+    from ssdn_tpu_torch.config import ModelConfig, TrainConfig, parse_noise_style
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+
+    conv, head = {"lax": ("lax", "lax"), "head_pallas": ("lax", "pallas"),
+                  "conv_pallas": ("pallas", "lax")}[arm]
+    cfg = TrainConfig(noise=parse_noise_style("gauss25"), model=ModelConfig(
+        in_channels=3, compute_dtype="float32", enc_features=16,
+        dec_features=32, nin_a_features=64, nin_b_features=32,
+        conv_backend=conv, head_backend=head))
+    params = bu.init_params(torch.Generator().manual_seed(0), 3, 9, enc=16,
+                            dec=32, nin_a=64, nin_b=32, device="cuda")
+    noisy = np.random.default_rng(3).uniform(
+        -0.5, 0.5, (32, 1024, 3)).astype(np.float32)
+    sigma = np.full((1,), 25 / 255, np.float32)
+    k1, k2 = K1.launches, K2.launches
+    tiled = tiled_denoise_sequential(cfg, params, noisy, sigma, tile_w=128)
+    counts = (K1.launches - k1, K2.launches - k2)
+    whole = full.denoise_image(full.make_denoise_fn(cfg), params, noisy, sigma)
+    assert counts == {"lax": (0, 0), "head_pallas": (0, 8),
+                      "conv_pallas": (24 * 8, 0)}[arm]
+    np.testing.assert_allclose(tiled, whole, rtol=0, atol=1e-4)

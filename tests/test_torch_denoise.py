@@ -180,10 +180,12 @@ def test_cli_denoise_on_cpu(tmp_path):
     out = outdir / "shot_denoised.png"
     assert out.exists()
     assert load_image(str(out)).shape == (64, 64, 3)
+    # --tiled sequential is ported (tests/test_torch_tiled.py); the sharded
+    # mode comes with the parallel slice
     with pytest.raises(NotImplementedError, match="slice"):
         main(["--device", "cpu", "--pretrained", "gauss25_rgb",
               "--input", str(inp), "--output", str(outdir),
-              "--tiled", "sequential"])
+              "--tiled", "sharded"])
     # --workdir is ported (tests/test_torch_train_cli.py); a directory that
     # holds no training run is refused
     with pytest.raises(FileNotFoundError):

@@ -3,7 +3,8 @@ and ``ssdn_tpu_torch/cli/evaluate.py``) on the CPU: PSNR parity with the JAX
 package's ``evaluate_dataset`` at identical weights and identical noisy
 images, batched against per-image eval, the refusals, and the port's
 version of ``tests/test_evaluate_cli.py`` (all but its data-parallel test:
-data parallelism is not ported yet)."""
+data parallelism is not ported yet). The sequential tiled mode is tested in
+``tests/test_torch_tiled.py``."""
 
 import json
 
@@ -113,8 +114,8 @@ def test_streaming_refused_and_tiled_modes_raise():
     with pytest.raises(ValueError, match="finite"):
         evaluate_dataset(cfg, None, open_dataset("synthetic:inf:64"))
     ds = open_dataset("synthetic:1:32")
-    for mode in ("sharded", "sharded-window", "sequential"):
-        with pytest.raises(NotImplementedError, match="10a|10b"):
+    for mode in ("sharded", "sharded-window"):
+        with pytest.raises(NotImplementedError, match="10b"):
             evaluate_dataset(cfg, None, ds, mode=mode, device="cpu")
     with pytest.raises(ValueError, match="requires mode='full'"):
         evaluate_dataset(cfg, None, ds, mode="sequential", eval_batch=2)
@@ -201,7 +202,7 @@ def test_single_dataset_json_backward_compatible(workdir, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(workdir):
-    for extra in (["--tiled", "sequential"], ["--data-parallel"]):
+    for extra in (["--tiled", "sharded"], ["--data-parallel"]):
         with pytest.raises(NotImplementedError):
             eval_main(["--workdir", str(workdir), "--dataset",
                        "synthetic:1:64", *extra])

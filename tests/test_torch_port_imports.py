@@ -41,6 +41,9 @@ TRAINER_SLICE = (
     "native/patch_sampler.cpp", "infer/full.py", "train/loop.py",
     "cli/train.py", "cli/evaluate.py", "cli/denoise.py",
     "cli/dataset_tool.py",
+    # the single-device remainder: sequential tiling, debug helpers, tools
+    "infer/tiled.py", "utils/debug.py", "tools/export_pretrained.py",
+    "tools/blind_calibration.py", "tools/parity_check.py",
 )
 
 
@@ -74,6 +77,10 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "import ssdn_tpu_torch.data, ssdn_tpu_torch.native, "
         "ssdn_tpu_torch.train.loop, ssdn_tpu_torch.cli.train, "
         "ssdn_tpu_torch.cli.evaluate, ssdn_tpu_torch.cli.dataset_tool\n"
+        "import ssdn_tpu_torch.infer.tiled, ssdn_tpu_torch.utils.debug, "
+        "ssdn_tpu_torch.tools.export_pretrained, "
+        "ssdn_tpu_torch.tools.blind_calibration, "
+        "ssdn_tpu_torch.tools.parity_check\n"
         "import ssdn_tpu_torch.native as n\n"
         "assert n._lib is None and n._lib_error is None, 'built at import'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -159,16 +159,14 @@ def test_denoise_folder(trained, tmp_path):
 
 
 def test_denoise_single_file_sequential(trained, tmp_path):
-    """Tiled inference is not ported yet (ROADMAP queue 1, 10a): the
-    sequential mode raises instead of writing an output."""
     indir, _ = _write_noisy(tmp_path, n=1)
     outdir = tmp_path / "out_seq"
-    with pytest.raises(NotImplementedError, match="slice"):
-        denoise_main([
-            "--workdir", str(trained), "--input", str(indir / "img0.png"),
-            "--output", str(outdir), "--tiled", "sequential",
-        ])
-    assert not (outdir / "img0_denoised.png").exists()
+    denoise_main([
+        "--workdir", str(trained), "--input", str(indir / "img0.png"),
+        "--output", str(outdir), "--tiled", "sequential",
+        "--tile-w", "32", "--halo", "32",
+    ])
+    assert (outdir / "img0_denoised.png").exists()
 
 
 def test_denoise_rerun_and_extension_collision(trained, tmp_path):
