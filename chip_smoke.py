@@ -88,7 +88,28 @@ which fails the run (non-zero exit) on any error:
    arm, lax/lax, and launch no kernel; (f) ``tools.export_pretrained`` of [7]'s conv-arm workdir,
    loaded with ``zoo.load``, serves [7]'s 768x512 request bit for bit as
    ``cli.denoise --workdir`` did. The kernels line's ``launches_by_path``
-   gains ``tiled`` for K1 and K2.
+   gains ``tiled`` for K1 and K2;
+9. data parallelism and sharded tiling, each rank a process of its own
+   (``--worker``, launched by ``torch.distributed.run``): (a) DP training
+   at world size 1 over NCCL (the conv arm through ``cli.train
+   --data-parallel``, the head arm through ``Trainer(group=)``; the
+   flagship, batch 384, 15 steps) held to one process's run at
+   ``RESUME_BAR``, cuDNN held to its deterministic algorithms in these
+   runs so that the bits read the DP arithmetic alone; (b) world size 2 over gloo, both ranks on the one card,
+   held to it at ``_agreement_ok``'s bf16 bar; K1 12 per step (conv), K2'
+   and K3 1 per step (head) in every rank; the gradient all-reduce and
+   the global batch's noise timed; (c) sharded tiling of [8]'s image at
+   world sizes 1 (NCCL) and 2 (gloo): both models in every arm by the
+   window modes (x2: exchange, 1664-wide windows), the lax arm per level,
+   and [4]'s first request (x2: gather); every rank returns the same
+   image, fp32 held to the lax arm's and to the untiled image at 1e-4,
+   bf16 at [4]'s bar (the per-level blind model to the untiled image),
+   K1 24 and K2 1 launches per window per rank, the per-level messages
+   counted and timed; (d) at world size 1 ``cli.denoise --tiled
+   sharded`` and ``cli.evaluate --data-parallel`` write the library
+   calls' PNG bytes; (e) where the machine has more cards, (a)-(c) at
+   their count over NCCL. The kernels line's ``launches_by_path`` gains
+   ``dp_training`` and ``sharded``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a GPU it exits with code 2 and
@@ -2081,15 +2102,549 @@ def run_tiled(torch, models, kept, report):
     return launches
 
 
+# --------------- data parallelism and sharded tiling ([9]) ---------------
+
+DIST_DIR = "build/chip_smoke_dist"     # under the checkout, gitignored
+# DP training ([9a], [9b]): the flagship at batch 384, DP_STEPS steps per
+# arm, logged every DP_LOG (no eval: every launch is a training step's)
+DP_STEPS, DP_LOG = 15, 5
+DIST_TIMEOUT = 420    # seconds per launched world (its ranks together)
+PERLEVEL_PROBES = 3   # instrumented per-level calls timing the messages
+ONE_CARD = "cuda:0"   # the device every rank of a gloo world shares
+
+
+def dp_cli_argv(wd):
+    """``cli.train``'s flags of the DP conv-arm run ([7]'s flagship, no
+    eval)."""
+    return ["--workdir", wd, "--device", DEVICE,
+            "--train-data", "synthetic:64:128", "--sampler-backend", "native",
+            "--conv-backend", "pallas", "--noise-style", "gauss25",
+            "--patch-size", str(PATCH), "--batch-size", str(TRAIN_BATCH),
+            "--iterations", str(DP_STEPS), "--log-interval", str(DP_LOG),
+            "--eval-interval", "0", "--snapshot-interval", str(DP_STEPS)]
+
+
+def dp_head_cfg():
+    """The head arm's flagship config of the DP runs (``cli.train`` has no
+    head-backend flag, so this arm runs through ``Trainer``)."""
+    return dataclasses.replace(trainer_cfg("lax", "pallas"),
+                               iterations=DP_STEPS, eval_interval=0,
+                               snapshot_interval=DP_STEPS)
+
+
+def _rank_json(root, rank, payload):
+    with open(f"{root}/rank{rank}.json", "w") as f:
+        json.dump(payload, f, default=str)
+
+
+def _time_mean_grads(torch, params, group, reps=20):
+    """ms per ``mean_grads_`` of a gradient tree shaped like ``params``
+    (CUDA events), and its bytes."""
+    from ssdn_tpu_torch.parallel import mean_grads_
+
+    grads = {k: {n: torch.randn_like(t) for n, t in leaf.items()}
+             for k, leaf in params.items()}
+    nbytes = sum(t.numel() * t.element_size() for leaf in grads.values()
+                 for t in leaf.values())
+    return cuda_ms(torch, lambda: mean_grads_(grads, group), reps), nbytes
+
+
+def worker_dp(spec):
+    """One rank of a DP training run ([9a] / [9b] / [9e]), or the single
+    process it is held to (spec["mode"] "one"): the head arm through
+    ``Trainer``, then the conv arm through ``cli.train`` (with
+    ``--data-parallel`` it joins the group formed here, and leaves it at
+    its end; over gloo, whose ranks share cuda:0, through ``Trainer`` with
+    the CLI's config), launches counted around each arm. The group is
+    formed once: a default group re-formed on a store that still holds
+    the last one's keys is not safe above world size 1. cuDNN runs its
+    deterministic algorithms here: its default backward need not repeat
+    its bits from run to run, which [9a]'s comparison would read."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+
+    from ssdn_tpu_torch import parallel
+    from ssdn_tpu_torch.cli.train import build_parser, config_from_args
+    from ssdn_tpu_torch.cli.train import main as train_main
+    from ssdn_tpu_torch.train.loop import Trainer
+    from ssdn_tpu_torch.train.step import init_state, make_train_step
+
+    root, mode, backend = spec["root"], spec["mode"], spec.get("backend")
+    group = None
+    if mode == "dp":
+        # several ranks on one card over gloo: NCCL refuses that
+        group = (parallel.init_group(ONE_CARD, "gloo")
+                 if backend == "gloo" else parallel.init_group(DEVICE))
+    rank = group.rank if group is not None else 0
+    out = {"mode": mode, "arms": {}}
+    if group is not None:
+        out.update(rank=group.rank, world=group.world, backend=group.backend)
+    for arm in ("head", "conv"):
+        wd = f"{root}/{arm}"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if arm == "conv" and backend != "gloo":
+            train_main(dp_cli_argv(wd)
+                       + (["--data-parallel"] if group is not None else []))
+        else:
+            cfg = (config_from_args(build_parser().parse_args(
+                dp_cli_argv(wd))) if arm == "conv" else dp_head_cfg())
+            Trainer(cfg, wd, train_data="synthetic:64:128",
+                    log_interval=DP_LOG,
+                    sampler_backend="native" if arm == "conv" else "python",
+                    device=DEVICE if group is None else None,
+                    group=group).train()
+        torch.cuda.synchronize()
+        out["arms"][arm] = dict(counts=read_counts(),
+                                seconds=time.perf_counter() - t0)
+        if arm == "head" and group is not None:
+            # the gradient all-reduce alone, and the global batch's noise
+            state = init_state(dp_head_cfg(), device=group.device)
+            ms, nbytes = _time_mean_grads(torch, state.params, group)
+            ts = make_train_step(dp_head_cfg(), device=group.device,
+                                 group=group)
+            batch = train_batch_u8()
+            out.update(mean_grads_ms=ms, mean_grads_bytes=nbytes,
+                       global_noise_ms=cuda_ms(
+                           torch, lambda: ts.noisy_batch(batch, 0), 10))
+    if backend == "gloo":
+        parallel.destroy_group()
+    _rank_json(root, rank, out)
+
+
+def _perlevel_messages(torch, cfg, params, noisy, pv, group):
+    """Messages, bytes and ms spent in ``ppermute`` (synchronised around
+    each) over one instrumented per-level call."""
+    from ssdn_tpu_torch.infer import halo
+    from ssdn_tpu_torch.infer.halo import tiled_denoise_perlevel
+
+    real, seen = halo.ppermute, []
+
+    def timed(t, pairs, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = real(t, pairs, g)
+        torch.cuda.synchronize()
+        seen.append((t.numel() * t.element_size(), time.perf_counter() - t0))
+        return r
+
+    halo.ppermute = timed
+    try:
+        tiled_denoise_perlevel(cfg, params, noisy, pv, group)
+    finally:
+        halo.ppermute = real
+    return dict(messages=len(seen), bytes=sum(b for b, _ in seen),
+                max_bytes=max(b for b, _ in seen),
+                ms=1e3 * sum(s for _, s in seen))
+
+
+def worker_sharded(spec):
+    """One rank of sharded tiling ([9c] / [9e]; at world size 1 also
+    [9d]'s CLIs): the 2048x1536 image of [8] in every arm of both models
+    by strategy "window", the lax arm by "perlevel", and [4]'s first
+    768x512 request by "window" (gather mode at world size 2: strip 384 <
+    2 x 320), launches counted around each call; rank 0 saves every output
+    for the checks in the parent, every rank its outputs' hashes."""
+    import hashlib
+
+    import torch
+
+    from ssdn_tpu_torch import parallel
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sharded
+
+    root, backend = spec["root"], spec.get("backend")
+    out = {"calls": []}
+    if spec.get("clis"):
+        out["clis"] = sharded_clis(root)
+    group = (parallel.init_group(ONE_CARD, "gloo") if backend == "gloo"
+             else parallel.init_group(DEVICE))
+    models = {name: load_model(name, group.device) for name in MODELS}
+    pv = sigma_vec(25.0)
+    images = {"wide": tiled_image(*TILED_HW)[1],
+              "gather": requests(models[MODELS[0]][0])[0][1]}
+    cases = [(name, arm, "window", "wide") for name in MODELS
+             for arm in ARMS]
+    cases += [(name, "lax", "perlevel", "wide") for name in MODELS]
+    cases += [(name, arm, "window", "gather") for name in MODELS
+              for arm in ARMS]
+    for name, arm, strategy, img in cases:
+        cfg, params = models[name]
+        c = with_arm(cfg, arm)
+        tiled_denoise_sharded(c, params, images[img], pv, group,
+                              strategy=strategy)   # warm-up, not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        den = tiled_denoise_sharded(c, params, images[img], pv, group,
+                                    strategy=strategy)
+        secs = time.perf_counter() - t0
+        key = f"{name}.{arm}.{strategy}.{img}"
+        out["calls"].append(dict(
+            key=key, counts=read_counts(), seconds=secs,
+            sha256=hashlib.sha256(den.tobytes()).hexdigest()))
+        if group.rank == 0:
+            np.save(f"{root}/{key}.npy", den)
+    cfg, params = models[MODELS[1]]
+    out["perlevel_messages"] = [
+        _perlevel_messages(torch, cfg, params, images["wide"], pv, group)
+        for _ in range(PERLEVEL_PROBES)]
+    out.update(rank=group.rank, world=group.world, backend=group.backend)
+    _rank_json(root, group.rank, out)
+    parallel.destroy_group()
+
+
+def sharded_clis(root):
+    """[9d] at world size 1: ``cli.denoise --pretrained gauss25_rgb --tiled
+    sharded`` on the 2048x1536 PNG and ``cli.evaluate --data-parallel
+    --save-images`` on ``synthetic:2:512``, each against the library call
+    (``tiled_denoise_sharded``; ``evaluate_dataset`` over the group) in the
+    artifact's recorded arm: the same PNG bytes. Each CLI forms and leaves
+    its own group; the library calls run in one formed after them."""
+    from ssdn_tpu_torch import parallel
+    from ssdn_tpu_torch.cli.denoise import default_param, to_internal_param
+    from ssdn_tpu_torch.cli.denoise import main as denoise_main
+    from ssdn_tpu_torch.cli.evaluate import main as eval_main
+    from ssdn_tpu_torch.data import open_dataset
+    from ssdn_tpu_torch.infer import evaluate_dataset
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sharded
+    from ssdn_tpu_torch.utils import load_image, save_image
+    from ssdn_tpu_torch.utils.images import to_internal
+
+    src = f"{root}/in/wide.png"
+    save_image(src, tiled_image(*TILED_HW)[1])
+    t0 = time.perf_counter()
+    denoise_main(["--pretrained", "gauss25_rgb", "--input", src, "--output",
+                  f"{root}/cli", "--tiled", "sharded", "--device", DEVICE])
+    denoise_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eval_main(["--pretrained", "gauss25_rgb", "--dataset", "synthetic:2:512",
+               "--data-parallel", "--save-images", f"{root}/eval_cli",
+               "--json-out", f"{root}/eval_cli.json", "--device", DEVICE])
+    eval_s = time.perf_counter() - t0
+    group = parallel.init_group(DEVICE)
+    cfg, params = load_model("gauss25_rgb", group.device)
+    lib = tiled_denoise_sharded(cfg, params, to_internal(load_image(src)),
+                                to_internal_param(cfg, default_param(cfg)),
+                                group)
+    save_image(f"{root}/lib/wide_denoised.png", lib)
+    res = evaluate_dataset(cfg, params, open_dataset("synthetic:2:512"),
+                           return_images=2, group=group)
+    for i, trio in enumerate(res["images"]):
+        save_image(f"{root}/eval_lib/{i:03d}_denoised.png", trio["denoised"])
+    parallel.destroy_group()
+
+    def same(a, b):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            return fa.read() == fb.read()
+
+    with open(f"{root}/eval_cli.json") as f:
+        cli_psnr = json.load(f)["psnr_per_image"]
+    return dict(
+        denoise_same_png=same(f"{root}/cli/wide_denoised.png",
+                              f"{root}/lib/wide_denoised.png"),
+        evaluate_same_png=all(same(f"{root}/eval_cli/{i:03d}_denoised.png",
+                                   f"{root}/eval_lib/{i:03d}_denoised.png")
+                              for i in range(2)),
+        evaluate_same_psnr=cli_psnr == res["psnr_per_image"],
+        psnr=cli_psnr, denoise_s=denoise_s, evaluate_s=eval_s)
+
+
+def launch_world(kind, root, world, backend=None, clis=False):
+    """Run ``python3 chip_smoke.py --worker KIND`` under ``torchrun
+    --standalone`` with ``world`` ranks (kind "one": a plain process), its
+    output in ``root``/log.txt; fails the phase on any rank's failure.
+    Returns every rank's JSON."""
+    import os
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    spec = json.dumps(dict(root=root, mode=kind, backend=backend, clis=clis))
+    worker = "dp" if kind in ("dp", "one") else kind
+    cmd = [sys.executable, __file__, "--worker", worker, "--spec", spec]
+    if kind != "one":
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(world), *cmd[1:]]
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    with open(f"{root}/log.txt", "w") as log:
+        try:
+            run = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                 env=env, timeout=DIST_TIMEOUT)
+            rc = run.returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        with open(f"{root}/log.txt") as f:
+            tail = f.read()[-4000:]
+        check(False, f"[9] {kind} x{world} ({backend or 'default'}) exited "
+                     f"with {rc}:\n{tail}")
+    ranks = []
+    for r in range(world if kind != "one" else 1):
+        with open(f"{root}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    ranks[0]["launch_seconds"] = secs
+    return ranks
+
+
+def _ckpt_params(torch, wd):
+    blob = torch.load(f"{wd}/ckpt/step_{DP_STEPS:010d}.pt",
+                      map_location="cpu", weights_only=True)
+    return blob["params"]
+
+
+def _dp_compare(torch, got_wd, ref_wd, init):
+    """The DP run's final params and logged losses against the single
+    process's: the L2 gap over the L2 distance moved (RESUME_BAR), the
+    bits, the least per-leaf cosine of the two updates and the largest
+    relative loss gap (``_agreement_ok``'s bf16 bar)."""
+    got, ref = _ckpt_params(torch, got_wd), _ckpt_params(torch, ref_wd)
+    keys = [(k, n) for k in ref for n in ref[k]]
+    sq = lambda a, b: sum(float(torch.sum((a[k][n].double()
+                                           - b[k][n].double()) ** 2))
+                          for k, n in keys)
+    moved = sq(ref, init) ** 0.5
+    cos = []
+    for k, n in keys:
+        a = (got[k][n] - init[k][n]).double().flatten()
+        b = (ref[k][n] - init[k][n]).double().flatten()
+        if b.abs().max() > 0:
+            cos.append(float(torch.nn.functional.cosine_similarity(
+                a, b, dim=0)))
+    loss = {d: trainer_rows(wd)[0] for d, wd in (("got", got_wd),
+                                                  ("ref", ref_wd))}
+    check(sorted(loss["got"]) == sorted(loss["ref"]),
+          f"DP logged steps {sorted(loss['got'])} vs {sorted(loss['ref'])}")
+    return dict(
+        ratio=sq(got, ref) ** 0.5 / moved, moved_l2=moved,
+        bits_match=all(torch.equal(got[k][n], ref[k][n]) for k, n in keys),
+        min_cos=min(cos),
+        loss_rel=max(abs(loss["got"][s]["loss"] - loss["ref"][s]["loss"])
+                     / abs(loss["ref"][s]["loss"]) for s in loss["ref"]),
+        patches_per_s=loss["got"][max(loss["got"])]["patches_per_sec"],
+        ref_patches_per_s=loss["ref"][max(loss["ref"])]["patches_per_sec"])
+
+
+def dp_training(torch, report):
+    """[9a] DP at world size 1 (NCCL, torchrun, ``cli.train
+    --data-parallel`` in the conv arm, ``Trainer(group=)`` in the head
+    arm) against the same runs without a group, at RESUME_BAR; [9b] world
+    size 2 over gloo, both ranks on cuda:0, and [9e] world size
+    ``device_count`` over NCCL where the machine has more cards, at
+    ``_agreement_ok``'s bf16 bar. Launches counted in each rank around each arm: K1 12 per
+    step (conv), K2' and K3 1 per step (head). Returns the launches."""
+    from ssdn_tpu_torch.cli.train import build_parser, config_from_args
+    from ssdn_tpu_torch.train.step import init_state
+
+    one = launch_world("one", f"{DIST_DIR}/dp_one", 1)
+    worlds = dist_worlds(torch, [("9a", 1, None), ("9b", 2, "gloo")])
+    inits = {
+        "conv": init_state(config_from_args(build_parser().parse_args(
+            dp_cli_argv("x"))), device="cpu").params,
+        "head": init_state(dp_head_cfg(), device="cpu").params}
+    want = {"conv": dict(k1=K1_PER_TRUNK * DP_STEPS, k2=0, k2_save_h1=0, k3=0),
+            "head": dict(k1=0, k2=0, k2_save_h1=DP_STEPS, k3=DP_STEPS)}
+    for arm, counts in one[0]["arms"].items():
+        check(counts["counts"] == want[arm],
+              f"[9] single-process {arm} arm: launches {counts['counts']}")
+    launches = {"k1": 0, "k2": 0, "k2_save_h1": 0, "k3": 0}
+    rows = []
+    for tag, world, backend in worlds:
+        root = f"{DIST_DIR}/dp_{tag}"
+        ranks = launch_world("dp", root, world, backend)
+        for r in ranks:
+            for arm, a in r["arms"].items():
+                check(a["counts"] == want[arm],
+                      f"[{tag}] rank {r['rank']} {arm} arm: launches "
+                      f"{a['counts']}, expected {want[arm]}")
+                for k in launches:
+                    launches[k] += a["counts"][k]
+        for arm in ("conv", "head"):
+            c = _dp_compare(torch, f"{root}/{arm}", f"{DIST_DIR}/dp_one/{arm}",
+                            inits[arm])
+            if world > 1:   # the rows' sums split over the ranks
+                ok = _agreement_ok("bfloat16", f"{arm}_pallas", "lax",
+                                   "random", c)
+                bar = "loss 1e-2, cosine 0.99"
+            else:
+                ok = c["ratio"] <= RESUME_BAR
+                bar = f"|gap| <= {RESUME_BAR} |moved|"
+            row = dict(path=tag, world=world, backend=ranks[0]["backend"],
+                       arm=arm, seconds=ranks[0]["arms"][arm]["seconds"],
+                       one_seconds=one[0]["arms"][arm]["seconds"],
+                       mean_grads_ms=ranks[0]["mean_grads_ms"],
+                       mean_grads_bytes=ranks[0]["mean_grads_bytes"],
+                       global_noise_ms=ranks[0]["global_noise_ms"], **c)
+            rows.append(row)
+            shared = (" (2 processes sharing one card: no scaling number)"
+                      if backend == "gloo" else "")
+            print(f"  [{tag}] DP x{world} {row['backend']} {arm} arm: "
+                  f"|dp - one| {c['ratio']:.3g} x |moved| {c['moved_l2']:.3g},"
+                  f" bits match: {c['bits_match']}, update cosine "
+                  f"{c['min_cos']:.6f}, loss gap {c['loss_rel']:.2e} "
+                  f"(bar: {bar}); {c['patches_per_s']:.1f} patches/s over "
+                  f"the last {DP_LOG} steps{shared}, one process "
+                  f"{c['ref_patches_per_s']:.1f}")
+            check(ok, f"[{tag}] DP {arm} arm off the single process: {c}")
+        r0 = ranks[0]
+        print(f"  [{tag}] mean_grads_ ({r0['mean_grads_bytes'] / 1e6:.2f} MB "
+              f"of gradients, {r0['backend']}): {r0['mean_grads_ms']:.3f} ms;"
+              f" the global batch's noise: {r0['global_noise_ms']:.3f} ms")
+    report["dp_training"] = dict(rows=rows, launches=launches,
+                                 one_seconds={a: v["seconds"] for a, v in
+                                              one[0]["arms"].items()})
+    return launches
+
+
+def sharded_tiling(torch, models, report):
+    """[9c] sharded tiling at world size 1 (NCCL, with [9d]'s CLIs) and 2
+    (gloo on cuda:0), [9e] at ``device_count`` (NCCL) where there are more
+    cards: every rank returns the same image; fp32 kernel arms held to the
+    lax arm's sharded output and to the untiled image at 1e-4, the fp32
+    per-level output to the untiled image at 1e-4, bf16 arms to the lax
+    arm's sharded output at [4]'s bar and the bf16 blind per-level output
+    (a global estimate) to the untiled image at that bar; K1 24 and K2 1
+    launches per window in each rank. Returns the launches."""
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.utils.images import psnr
+
+    pv = sigma_vec(25.0)
+    clean, noisy = tiled_image(*TILED_HW)
+    gclean, gnoisy, _ = requests(models[MODELS[0]][0])[0]
+    untiled = {}
+    for name in MODELS:
+        cfg, params = models[name]
+        for img, y in (("wide", noisy), ("gather", gnoisy)):
+            untiled[name, img] = full.denoise_image(
+                full.make_denoise_fn(with_arm(cfg, "lax"), device=DEVICE),
+                params, y, pv)
+    torch.cuda.empty_cache()   # the ranks are processes of their own
+    worlds = dist_worlds(torch, [("9c", 1, None), ("9c", 2, "gloo")])
+    launches, rows, messages = {"k1": 0, "k2": 0}, [], {}
+    for tag, world, backend in worlds:
+        root = f"{DIST_DIR}/sharded_{world}_{backend or 'nccl'}"
+        ranks = launch_world("sharded", root, world, backend,
+                             clis=world == 1)
+        if world == 1:
+            cl = ranks[0]["clis"]
+            report["sharded_clis"] = cl
+            print(f"  [9d] cli.denoise --tiled sharded: {cl['denoise_s']:.1f}"
+                  f" s, the library call's PNG bytes: {cl['denoise_same_png']};"
+                  f" cli.evaluate --data-parallel ({cl['evaluate_s']:.1f} s, "
+                  f"PSNR {cl['psnr']}): the library's PNG bytes "
+                  f"{cl['evaluate_same_png']}, PSNRs {cl['evaluate_same_psnr']}")
+            check(cl["denoise_same_png"] and cl["evaluate_same_png"]
+                  and cl["evaluate_same_psnr"],
+                  f"[9d] a sharded CLI wrote other bytes than the library: {cl}")
+        messages[f"{world}_{ranks[0]['backend']}"] = ranks[0][
+            "perlevel_messages"]
+        outs = {}
+        for i, call in enumerate(ranks[0]["calls"]):
+            key = call["key"]
+            name, arm, strategy, img = key.split(".")
+            for r in ranks:
+                rc = r["calls"][i]
+                check(rc["key"] == key and rc["sha256"] == call["sha256"],
+                      f"[{tag}] x{world}: rank {r['rank']}'s {key} differs "
+                      "from rank 0's")
+                wins = 1 if strategy == "window" else 0
+                want = {"lax": (0, 0), "head_pallas": (0, wins),
+                        "conv_pallas": (2 * K1_PER_TRUNK * wins, 0)}[arm]
+                got = (rc["counts"]["k1"], rc["counts"]["k2"])
+                check(got == want, f"[{tag}] x{world} rank {r['rank']} {key}:"
+                                   f" launches K1, K2 {got}, expected {want}")
+                launches["k1"] += got[0]
+                launches["k2"] += got[1]
+            outs[key] = np.load(f"{root}/{key}.npy")
+        for i, call in enumerate(ranks[0]["calls"]):
+            key = call["key"]
+            name, arm, strategy, img = key.split(".")
+            cfg = models[name][0]
+            bf16 = cfg.model.compute_dtype == "bfloat16"
+            tol = 4 / 255 if bf16 else 1e-4
+            out = outs[key]
+            ref_clean = clean if img == "wide" else gclean
+            ref_noisy = noisy if img == "wide" else gnoisy
+            lax = outs[f"{name}.lax.window.{img}"]
+            whole = untiled[name, img]
+            row = dict(path=tag, world=world, backend=ranks[0]["backend"],
+                       key=key, seconds=call["seconds"],
+                       max_abs_vs_lax=float(np.abs(out - lax).max()),
+                       max_abs_vs_untiled=float(np.abs(out - whole).max()),
+                       bits_match_untiled=bool(np.array_equal(out, whole)),
+                       psnr_gain_db=psnr(out, ref_clean)
+                       - psnr(ref_noisy, ref_clean))
+            rows.append(row)
+            check(out.shape == ref_clean.shape
+                  and bool(np.isfinite(out).all()),
+                  f"[{tag}] x{world} {key}: shape {out.shape} or not finite")
+            check(row["psnr_gain_db"] >= 3.0,
+                  f"[{tag}] x{world} {key}: PSNR gain {row['psnr_gain_db']:.2f}")
+            check(row["max_abs_vs_lax"] <= tol,
+                  f"[{tag}] x{world} {key}: {row['max_abs_vs_lax']:.3e} from "
+                  f"the lax arm's sharded output > {tol:.1e}")
+            if not bf16 or strategy == "perlevel":
+                check(row["max_abs_vs_untiled"] <= tol,
+                      f"[{tag}] x{world} {key}: {row['max_abs_vs_untiled']:.3e}"
+                      f" from the untiled image > {tol:.1e}")
+            shared = (" (2 processes sharing one card)"
+                      if backend == "gloo" else "")
+            print(f"  [{tag}] x{world} {row['backend']} {key}: "
+                  f"{call['seconds']:.2f} s{shared}, K1 {call['counts']['k1']}"
+                  f", K2 {call['counts']['k2']} per rank, |- lax| "
+                  f"{row['max_abs_vs_lax']:.2e}, |- untiled| "
+                  f"{row['max_abs_vs_untiled']:.2e} (bits "
+                  f"{row['bits_match_untiled']}), gain "
+                  f"{row['psnr_gain_db']:.2f} dB")
+        m = messages[f"{world}_{ranks[0]['backend']}"]
+        print(f"  [{tag}] x{world} per-level messages ({MODELS[1]}, "
+              f"{TILED_HW[1]}x{TILED_HW[0]}): {m[-1]['messages']} ppermutes, "
+              f"{m[-1]['bytes'] / 1e6:.2f} MB (largest "
+              f"{m[-1]['max_bytes'] / 1e3:.1f} KB), "
+              + ", ".join(f"{p['ms']:.1f}" for p in m)
+              + " ms in ppermute over the probes")
+    report["sharded"] = dict(rows=rows, launches=launches,
+                             perlevel_messages=messages)
+    return launches
+
+
+def dist_worlds(torch, one_card):
+    """The worlds of a [9] sub-step: ``one_card``'s, then [9e] over NCCL at
+    the machine's card count where it has more than one."""
+    n = torch.cuda.device_count()
+    return one_card + ([("9e", n, None)] if n > 1 else [])
+
+
+def run_dist(torch, models, report):
+    """[9]: the sub-steps in order; returns {path: launches}."""
+    t0 = time.perf_counter()
+    out = {"dp_training": dp_training(torch, report),
+           "sharded": sharded_tiling(torch, models, report)}
+    report["dist_seconds"] = time.perf_counter() - t0
+    print(f"  [9] took {report['dist_seconds']:.1f} s; launches: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--report", default=None,
                    help="write every measurement to this JSON file")
+    p.add_argument("--worker", choices=["dp", "sharded"], default=None,
+                   help=argparse.SUPPRESS)   # one rank of [9], launched by it
+    p.add_argument("--spec", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
 
     import torch
 
+    if args.worker:
+        spec = json.loads(args.spec)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        {"dp": worker_dp, "sharded": worker_sharded}[args.worker](spec)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -2114,8 +2669,8 @@ def main(argv=None) -> int:
     print(f"  built {sorted(logs) or 'nothing (cached)'} in "
           f"{report['build_s']:.1f} s")
 
-    print("[3] kernels vs twins")
     models = {name: load_model(name, DEVICE) for name in MODELS}
+    print("[3] kernels vs twins")
     calls = capture_operands(torch, models, report)
     kernels_vs_twins(torch, calls, report)
     train_calls = capture_training(torch, models, report)
@@ -2193,6 +2748,24 @@ def main(argv=None) -> int:
             entry["launches"] += tiled[kind]
     shutil.rmtree(TRAINER_DIR, ignore_errors=True)
     shutil.rmtree(TILED_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()   # [9]'s ranks are processes of their own
+
+    print(f"[9] data parallelism and sharded tiling: DP training x1 (NCCL) "
+          f"and x2 (gloo on one card), {DP_STEPS} steps x 2 arms at batch "
+          f"{TRAIN_BATCH}; sharded tiling x1 and x2 (2048x1536, 3 arms x 2 "
+          "models, per-level, gather at 768x512); the sharded CLIs")
+    dist = run_dist(torch, models, report)
+    check(all(dist["dp_training"][k] > 0 for k in ("k1", "k2_save_h1", "k3"))
+          and all(dist["sharded"][k] > 0 for k in ("k1", "k2")),
+          f"a kernel was not launched on the [9] paths: {dist}")
+    for entry in kernel_line:
+        kind = {"shifted_conv3x3_bias_act": "k1", "fused_nin_head": "k2",
+                "nin_head_fwd(save_h1=True)": "k2_save_h1",
+                "nin_head_bwd": "k3"}[entry["name"]]
+        for path, counts in dist.items():
+            entry["launches_by_path"][path] = counts.get(kind, 0)
+            entry["launches"] += counts.get(kind, 0)
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
 
     if args.report:
         with open(args.report, "w") as f:

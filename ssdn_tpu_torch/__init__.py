@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, module for module: the JAX package
 is the reference and this package imports nothing of it (nor of JAX).
-Everything the JAX package does on one device is ported: the serving
-path (pretrained denoise, full-image and sequential tiled), the training
-step, the training entry point (data, Trainer, evaluation, CLIs), the
-zoo's writer and the tools; data parallelism and sharded tiling are not:
+Everything the JAX package does is ported, nothing is left: the serving
+path (pretrained denoise, full-image, sequential and sharded tiled), the
+training step, the training entry point (data, Trainer, evaluation,
+CLIs), data parallelism over ``torch.distributed``, the zoo's writer and
+the tools:
 
   config.py   a copy of the JAX package's config (the zoo JSON parses the same)
   zoo.py      reads the bundled ``ssdn_tpu/pretrained/*.npz`` artifacts by
@@ -22,8 +23,12 @@ zoo's writer and the tools; data parallelism and sharded tiling are not:
   native/     the C++ crop gatherer, built with g++ on first use
   train/      the training step (four pipelines, Adam, schedules) and the
               Trainer (guard, eval, checkpoints, exact resume)
+  parallel/   process groups (``torchrun``: NCCL on the cards, gloo on the
+              CPU) and the collectives of DP training and sharded tiling
   infer/      full-image denoise, sequential tiled denoise (one window of
-              ``tile_w + 2*halo`` columns at a time) and ``evaluate_dataset``
+              ``tile_w + 2*halo`` columns at a time), sharded tiled
+              denoise (per-level halo exchange ``halo.py``, exchange and
+              gather windows) and ``evaluate_dataset``
   utils/      images, device selection, and the debug helpers (profiler
               trace, anomaly mode, step timer, finiteness check)
   cli/        ``python -m ssdn_tpu_torch.cli.{train,evaluate,denoise,
@@ -33,7 +38,8 @@ zoo's writer and the tools; data parallelism and sharded tiling are not:
 
 Tensors at the public functions are NHWC, as in the JAX package; inside,
 NCHW in ``channels_last`` memory. Entry points run on the GPU unless the
-caller passes ``device="cpu"``.
+caller passes ``device="cpu"``; where the JAX package takes a ``mesh``, the
+port takes a ``parallel.Group``.
 """
 
 __version__ = "0.1.0"

@@ -21,8 +21,10 @@ Examples:
   # columns on the card at a time
   python -m ssdn_tpu_torch.cli.denoise ... --tiled sequential --tile-w 512
 
-``--tiled sharded`` comes with the parallel slice of the port: it raises
-NotImplementedError.
+  # one image's W axis split over the node's cards (one process per card;
+  # only rank 0 writes)
+  torchrun --nproc-per-node 4 -m ssdn_tpu_torch.cli.denoise ... \
+      --tiled sharded
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import os
 
 import numpy as np
 
+from ssdn_tpu_torch import parallel
 from ssdn_tpu_torch.config import NoiseModel
 
 
@@ -58,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiled", default="full",
                    choices=["full", "sequential", "sharded"],
                    help="'sequential' bounds memory on one device; "
-                        "'sharded' is not ported yet")
+                        "'sharded' splits each image's W axis over the "
+                        "ranks of a torchrun launch")
     p.add_argument("--halo", type=int, default=320,
                    help="window overlap in px for --tiled sequential; "
                         ">= 320 is exact (see infer/tiled.py)")
@@ -88,22 +92,33 @@ def to_internal_param(cfg, value: float) -> np.ndarray:
 
 
 def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    group = None
+    if args.tiled == "sharded":
+        group = parallel.init_group(args.device)
+        args.device = group.device
+    try:
+        _denoise(args, group)
+    finally:
+        if group is not None:
+            parallel.destroy_group()
+
+
+def _denoise(args, group) -> None:
     from ssdn_tpu_torch.cli.evaluate import _load_model
     from ssdn_tpu_torch.infer import denoise_image, make_denoise_fn
-    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+    from ssdn_tpu_torch.infer.tiled import (
+        tiled_denoise_sequential,
+        tiled_denoise_sharded,
+    )
     from ssdn_tpu_torch.utils import list_images, load_image, save_image
     from ssdn_tpu_torch.utils.images import to_internal
 
-    args = build_parser().parse_args(argv)
-    if args.tiled == "sharded":
-        raise NotImplementedError(
-            "--tiled sharded comes with the next slice of the port (ROADMAP "
-            "queue 1: 9 parallel and 10b sharded tiling); use --tiled full "
-            "or sequential"
-        )
-    cfg, params, step = _load_model(args)
-    print(f"checkpoint step: {step}")
-    print(f"noise model:     {cfg.noise.describe()}")
+    rank0 = group is None or group.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    cfg, params, step = _load_model(args, say)
+    say(f"checkpoint step: {step}")
+    say(f"noise model:     {cfg.noise.describe()}")
 
     paths = list_images(args.input) if os.path.isdir(args.input) else [args.input]
     if not paths:
@@ -111,19 +126,23 @@ def main(argv=None) -> None:
     value = args.param if args.param is not None else default_param(cfg)
     param = to_internal_param(cfg, value)
 
-    # the sequential path builds its own per-window function
+    # the tiled paths build their own per-window functions
     fn = (make_denoise_fn(cfg, device=args.device) if args.tiled == "full"
           else None)
-    os.makedirs(args.output, exist_ok=True)
+    if rank0:
+        os.makedirs(args.output, exist_ok=True)
     emitted = set()
     for path in paths:
         noisy = to_internal(load_image(path, grayscale=cfg.grayscale))
         if args.tiled == "full":
             den = denoise_image(fn, params, noisy, param)
-        else:
+        elif args.tiled == "sequential":
             den = tiled_denoise_sequential(cfg, params, noisy, param,
                                            tile_w=args.tile_w, halo=args.halo,
                                            device=args.device)
+        else:
+            den = tiled_denoise_sharded(cfg, params, noisy, param, group,
+                                        halo=args.halo)
         stem, ext = os.path.splitext(os.path.basename(path))
         out_path = os.path.join(args.output, f"{stem}{args.suffix}.png")
         if out_path in emitted:
@@ -134,8 +153,9 @@ def main(argv=None) -> None:
                 args.output, f"{stem}_{ext.lstrip('.')}{args.suffix}.png"
             )
         emitted.add(out_path)
-        save_image(out_path, den)
-        print(f"  {path} -> {out_path} ({den.shape[1]}x{den.shape[0]})")
+        if rank0:
+            save_image(out_path, den)
+        say(f"  {path} -> {out_path} ({den.shape[1]}x{den.shape[0]})")
 
 
 if __name__ == "__main__":

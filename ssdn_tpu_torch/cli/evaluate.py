@@ -8,8 +8,12 @@ Example:
       --dataset /data/kodak --save-images /tmp/run1/denoised
 
 ``--tiled sequential`` denoises each image in overlap windows on one
-device (bounded memory). The sharded modes and ``--data-parallel`` come
-with the parallel slice of the port: they raise NotImplementedError.
+device (bounded memory). ``--tiled sharded`` / ``sharded-window`` split
+each image's W axis over the ranks of a torchrun launch, and
+``--data-parallel`` splits batches of images over them; only rank 0
+prints and writes:
+  torchrun --nproc-per-node 4 -m ssdn_tpu_torch.cli.evaluate \
+      --workdir /tmp/run1 --dataset /data/kodak --tiled sharded
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import argparse
 import json
 import os
 
+from ssdn_tpu_torch import parallel
 from ssdn_tpu_torch.config import parse_noise_style
 from ssdn_tpu_torch.data import open_dataset
 from ssdn_tpu_torch.infer import evaluate_dataset
@@ -50,29 +55,49 @@ def main(argv=None) -> None:
         "--tiled",
         default="full",
         choices=["full", "sharded", "sharded-window", "sequential"],
-        help="'sequential' = overlap tiles on one device (bounded "
-             "memory); the sharded modes are not ported yet",
+        help="'sharded' = per-level halo exchange over the ranks of a "
+             "torchrun launch (exact, strip-sized per-rank windows at any "
+             "image width; the torch-ops arm, else 'sharded-window'); "
+             "'sharded-window' = the clamped-window strategies (one "
+             "pre-forward exchange of --halo columns, or all_gather when "
+             "strips are narrow); 'sequential' = overlap tiles on one "
+             "device (bounded memory)",
     )
     p.add_argument("--halo", type=int, default=320,
-                   help="tile overlap in px for --tiled sequential; >= 320 "
-                        "is exact (see infer/tiled.py)")
+                   help="tile overlap in px for the window strategies; "
+                        ">= 320 is exact (see infer/tiled.py)")
     p.add_argument("--tile-w", type=int, default=512)
     p.add_argument("--eval-batch", type=int, default=1,
                    help="batch same-shaped images per forward (mode 'full'; "
                         "identical per-image math, higher throughput)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the image batch over all devices (not "
-                        "ported yet)")
+                   help="shard each batch of images over the ranks of a "
+                        "torchrun launch (each rank denoises different "
+                        "images); --eval-batch defaults to the world size")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs (default: the GPU)")
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel comes with the parallel slice of the port "
-            "(ROADMAP queue 1 item 9)"
-        )
+    group = None
+    if args.tiled in ("sharded", "sharded-window") or args.data_parallel:
+        group = parallel.init_group(args.device)
+        args.device = group.device
+    try:
+        _evaluate(args, group)
+    finally:
+        if group is not None:
+            parallel.destroy_group()
 
-    cfg, params, step = _load_model(args)
+
+def _evaluate(args, group) -> None:
+    rank0 = group is None or group.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if group is not None and args.tiled == "full" and args.eval_batch <= 1:
+        # data-parallel eval needs a multi-image batch to shard: one image
+        # per rank rather than silently doing nothing
+        args.eval_batch = group.world
+        say(f"[data-parallel] eval batch -> {args.eval_batch} "
+            "(one image per rank)")
+    cfg, params, step = _load_model(args, say)
     datasets = [d for spec in args.dataset for d in spec.split(",") if d]
     # --noise-style overrides the noise *parameters* but must preserve the
     # trained NoiseValue mode: a BLIND_CONST checkpoint keeps reading its
@@ -86,24 +111,24 @@ def main(argv=None) -> None:
         else None
     )
 
-    print(f"checkpoint step: {step}")
-    print(f"noise:   {(eval_noise or cfg.noise).describe()}")
+    say(f"checkpoint step: {step}")
+    say(f"noise:   {(eval_noise or cfg.noise).describe()}")
     results = {}
     for idx, name in enumerate(datasets):
         ds = open_dataset(name, grayscale=cfg.grayscale)
         res = evaluate_dataset(
             cfg, params, ds, eval_noise=eval_noise, seed=args.seed,
             mode=args.tiled, halo=args.halo, tile_w=args.tile_w,
-            eval_batch=args.eval_batch, device=args.device,
+            eval_batch=args.eval_batch, device=args.device, group=group,
             return_images=len(ds) if args.save_images else 0,
         )
         results[name] = {k: v for k, v in res.items() if k != "images"}
-        print(f"\ndataset: {name} ({res['n_images']} images)")
+        say(f"\ndataset: {name} ({res['n_images']} images)")
         for i, v in enumerate(res["psnr_per_image"]):
-            print(f"  image {i:3d}: {v:7.3f} dB")
-        print(f"noisy PSNR mean:    {res['noisy_psnr_mean']:7.3f} dB")
-        print(f"denoised PSNR mean: {res['psnr_mean']:7.3f} dB")
-        if args.save_images:
+            say(f"  image {i:3d}: {v:7.3f} dB")
+        say(f"noisy PSNR mean:    {res['noisy_psnr_mean']:7.3f} dB")
+        say(f"denoised PSNR mean: {res['psnr_mean']:7.3f} dB")
+        if args.save_images and rank0:
             # index prefix disambiguates datasets sharing a basename
             # (/a/kodak vs /b/kodak — or the same spec repeated — would
             # otherwise overwrite each other)
@@ -116,15 +141,15 @@ def main(argv=None) -> None:
 
     # the reference's eval artifact is a PSNR *table* over the eval sets
     if len(datasets) > 1:
-        print("\nPSNR table (dB):")
+        say("\nPSNR table (dB):")
         width = max(len(n) for n in datasets)
-        print(f"  {'dataset':<{width}}  {'noisy':>8}  {'denoised':>8}  images")
+        say(f"  {'dataset':<{width}}  {'noisy':>8}  {'denoised':>8}  images")
         for name in datasets:
             r = results[name]
-            print(f"  {name:<{width}}  {r['noisy_psnr_mean']:8.3f}  "
-                  f"{r['psnr_mean']:8.3f}  {r['n_images']:4d}")
+            say(f"  {name:<{width}}  {r['noisy_psnr_mean']:8.3f}  "
+                f"{r['psnr_mean']:8.3f}  {r['n_images']:4d}")
 
-    if args.json_out:
+    if args.json_out and rank0:
         payload = results[datasets[0]] if len(datasets) == 1 else {
             "datasets": results,
             "table": {
@@ -138,9 +163,9 @@ def main(argv=None) -> None:
             json.dump(payload, f, indent=2)
 
 
-def _load_model(args):
+def _load_model(args, say=print):
     """(cfg, the port's params on ``args.device``, step) from --pretrained
-    or --workdir."""
+    or --workdir; ``say`` prints (a no-op on ranks other than 0)."""
     if getattr(args, "pretrained", None):
         from ssdn_tpu_torch import zoo
         from ssdn_tpu_torch.models.blindspot_unet import params_from_jax
@@ -151,16 +176,16 @@ def _load_model(args):
     if not args.workdir:
         raise SystemExit("one of --workdir / --pretrained is required")
     cfg = load_config(args.workdir)
-    state = _restore(args, cfg, init_state(cfg, device=args.device))
+    state = _restore(args, cfg, init_state(cfg, device=args.device), say)
     return cfg, state.params, int(state.step)
 
 
-def _restore(args, cfg, state):
+def _restore(args, cfg, state, say=print):
     if args.which in ("best", "auto"):
         best = CheckpointManager(args.workdir, cfg, subdir="ckpt_best",
                                  max_to_keep=1)
         if best.latest_step() is not None:
-            print("restoring best-PSNR checkpoint (ckpt_best)")
+            say("restoring best-PSNR checkpoint (ckpt_best)")
             return best.restore(state)
         if args.which == "best":
             raise FileNotFoundError(

@@ -14,12 +14,17 @@ Examples:
       --train-data synthetic:8:64 --iterations 4 --batch-size 2 \
       --patch-size 32 --enc-features 8 --dec-features 16 \
       --nin-a-features 32 --nin-b-features 16
+  # data-parallel over the node's cards, one process per card (NCCL);
+  # --batch-size is the global batch, split over the ranks
+  torchrun --nproc-per-node 4 -m ssdn_tpu_torch.cli.train --data-parallel \
+      --workdir /tmp/dp --batch-size 384 ...
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ssdn_tpu_torch import parallel
 from ssdn_tpu_torch.config import (
     ModelConfig,
     Pipeline,
@@ -128,7 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--data-parallel",
         action="store_true",
-        help="shard the batch over all visible devices (not ported yet)",
+        help="shard the batch over the ranks of a torchrun launch (one "
+             "process per card, NCCL; gloo with --device cpu); only rank "
+             "0 writes the workdir",
     )
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model trains (default: the GPU)")
@@ -170,29 +177,32 @@ def config_from_args(args) -> TrainConfig:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel comes with the parallel slice of the port "
-            "(ROADMAP queue 1 item 9)"
-        )
     cfg = config_from_args(args)
-    trainer = Trainer(
-        cfg,
-        args.workdir,
-        train_data=args.train_data,
-        eval_data=args.eval_data,
-        log_interval=args.log_interval,
-        sampler_backend=args.sampler_backend,
-        profile_dir=args.profile_dir,
-        prefetch_depth=args.prefetch_depth,
-        prefetch_threads=args.prefetch_threads,
-        device=args.device,
-    )
-    print(f"training: {cfg.pipeline.value} | {cfg.noise.describe()} | "
-          f"objective={cfg.objective} | "
-          f"{cfg.patch_size}px x{cfg.batch_size} | {cfg.iterations} iters",
-          flush=True)
-    trainer.train(resume=not args.no_resume)
+    group = parallel.init_group(args.device) if args.data_parallel else None
+    try:
+        trainer = Trainer(
+            cfg,
+            args.workdir,
+            train_data=args.train_data,
+            eval_data=args.eval_data,
+            log_interval=args.log_interval,
+            sampler_backend=args.sampler_backend,
+            profile_dir=args.profile_dir,
+            prefetch_depth=args.prefetch_depth,
+            prefetch_threads=args.prefetch_threads,
+            device=args.device,
+            group=group,
+        )
+        if trainer.rank0:
+            print(f"training: {cfg.pipeline.value} | {cfg.noise.describe()} "
+                  f"| objective={cfg.objective} | {cfg.patch_size}px "
+                  f"x{cfg.batch_size} | {cfg.iterations} iters"
+                  + (f" | data-parallel x{group.world}" if group else ""),
+                  flush=True)
+        trainer.train(resume=not args.no_resume)
+    finally:
+        if group is not None:
+            parallel.destroy_group()
 
 
 if __name__ == "__main__":

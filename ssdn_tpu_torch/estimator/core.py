@@ -204,7 +204,7 @@ def _impulse_alpha(cfg: NoiseConfig, noise_params: Dict, noise_ch, device):
 
 def nll(out: torch.Tensor, y: torch.Tensor, cfg: NoiseConfig,
         noise_params: Dict, *, blind_reg=0.1, beta: float = 1.0,
-        robust: bool = True, bound: bool = True):
+        robust: bool = True, bound: bool = True, batch_mean=torch.mean):
     """Mean negative log-likelihood training loss. Returns (scalar, aux).
 
     beta is the beta-NLL pixel-weight exponent: each pixel's NLL is scaled
@@ -215,6 +215,11 @@ def nll(out: torch.Tensor, y: torch.Tensor, cfg: NoiseConfig,
     noise scale (Gaussian, Poisson) or add a log-barrier on alpha
     (impulse). aux holds sigma / sigma_hat / lam_hat / alpha_hat as the
     noise model gives them, and mu_mse.
+
+    batch_mean(t) is the mean of the detached beta weights over the whole
+    batch: ``torch.mean`` on one device; under data parallelism each rank
+    holds some rows, and the training step passes the mean over every
+    rank's rows (the one term of the loss that does not split by rows).
     """
     out = out.float()
     y = y.float()
@@ -230,7 +235,7 @@ def nll(out: torch.Tensor, y: torch.Tensor, cfg: NoiseConfig,
         pix_nll, _, var_scale = _gauss_nll_post(mu, a, y, var, robust=robust)
         if beta:
             w = var_scale.detach() ** beta
-            pix_nll = w / torch.mean(w) * pix_nll
+            pix_nll = w / batch_mean(w) * pix_nll
         loss = torch.mean(pix_nll)
         if blind_est:
             # anti-degeneracy regularizer, the same form for both models

@@ -9,8 +9,10 @@ Evaluation (``evaluate_dataset``, the reference ``evaluate.py`` flow): load
 a clean image, inject noise at the eval setting from a generator seeded
 per image (the port draws from ``torch.Generator``, so its noisy images
 are not the JAX package's), denoise, PSNR against the clean image. Modes
-"full" and "sequential" (``infer.tiled``) are ported; the sharded modes
-come with the parallel slice.
+"full", "sequential" (``infer.tiled``) and, over a process group
+(``ssdn_tpu_torch.parallel``), "sharded" and "sharded-window"
+(``infer.tiled.tiled_denoise_sharded``); mode "full" with a group is
+data-parallel eval, each rank denoising its rows of a batch of images.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ssdn_tpu_torch.config import (
 )
 from ssdn_tpu_torch.models import blindspot_unet
 from ssdn_tpu_torch.noise import add_noise
+from ssdn_tpu_torch.parallel import Group, all_gather_w, shard_rows
 from ssdn_tpu_torch.train.step import step_seed
 from ssdn_tpu_torch.utils.device import resolve_device
 from ssdn_tpu_torch.utils.images import pad_to_multiple, psnr, to_internal
@@ -125,22 +128,27 @@ def evaluate_dataset(
     return_images: int = 0,
     eval_batch: int = 1,
     device=None,
+    group: Optional[Group] = None,
 ) -> Dict:
     """Reference evaluate.py flow over a dataset: returns mean/per-image
     PSNR of the denoised estimates plus the noisy-input baseline PSNR.
     ``params`` are the port's tensors on ``device`` (default cuda; raises
-    without a GPU unless device="cpu").
+    without a GPU unless device="cpu"; ``group.device`` with a group).
 
-    mode: "full" (whole image at once) or "sequential" (overlap windows
+    mode: "full" (whole image at once), "sequential" (overlap windows
     of ``tile_w + 2*halo`` columns looped on one device,
-    ``infer.tiled.tiled_denoise_sequential``); "sharded" and
-    "sharded-window" raise NotImplementedError until the parallel slice.
+    ``infer.tiled.tiled_denoise_sequential``), or, over ``group``,
+    "sharded" (``tiled_denoise_sharded``'s strategy "auto") and
+    "sharded-window" (its strategy "window").
 
     eval_batch > 1 groups same-shaped images into one forward — identical
     per-image math (every op is batch-independent and the noise generator
     is per-image) in fewer launches. Images stream through: a buffer per
     shape is flushed whenever it holds eval_batch images, so host memory
-    stays O(#shapes * eval_batch images)."""
+    stays O(#shapes * eval_batch images). With a group (mode "full" only),
+    each chunk is padded to a multiple of the world size, every rank
+    denoises its rows and the results are gathered: every rank returns the
+    same dict."""
     noise = eval_noise or cfg.noise
     if getattr(dataset, "streaming", False):
         raise ValueError(
@@ -152,15 +160,19 @@ def evaluate_dataset(
             f"eval_batch={eval_batch} requires mode='full' (got {mode!r}); "
             "tiled modes process one image at a time"
         )
-    if mode in ("sharded", "sharded-window"):
-        raise NotImplementedError(
-            f"mode {mode!r} comes with the next slice of the port (ROADMAP "
-            "queue 1: 9 parallel and 10b sharded tiling); use mode='full' "
-            "or 'sequential'"
+    if (group is not None and group.world > 1 and mode == "full"
+            and eval_batch <= 1):
+        # one image per forward would leave every rank but one idle
+        raise ValueError(
+            "a group with mode='full' needs eval_batch > 1 (data-parallel "
+            "eval shards the image batch); pass eval_batch=group.world"
         )
-    if mode not in ("full", "sequential"):
+    if mode in ("sharded", "sharded-window") and group is None:
+        raise ValueError(f"mode {mode!r} needs a process group "
+                         "(parallel.init_group())")
+    if mode not in ("full", "sequential", "sharded", "sharded-window"):
         raise ValueError(mode)
-    dev = resolve_device(device)
+    dev = group.device if group is not None else resolve_device(device)
     n = len(dataset)
     psnrs: List[Optional[float]] = [None] * n
     noisy_psnrs: List[Optional[float]] = [None] * n
@@ -185,22 +197,39 @@ def evaluate_dataset(
         """chunk: list of (i, clean); one batched forward."""
         ys, ps = zip(*(noisy_for(i, c) for i, c in chunk))
         padded = [pad_to_multiple(y, blindspot_unet.STRIDE) for y in ys]
-        batch = np.stack([p[0] for p in padded])
-        pvec = torch.cat([torch.as_tensor(p).reshape(-1) for p in ps])
-        out = denoise_fn(params, batch, pvec).cpu().numpy()
+        stack = [p[0] for p in padded]
+        pv = [torch.as_tensor(p).reshape(-1) for p in ps]
+        n_dev = group.world if group is not None else 1
+        # pad the chunk to a multiple of the world size (duplicates dropped)
+        while len(stack) % n_dev:
+            stack.append(stack[-1])
+            pv.append(pv[-1])
+        batch = shard_rows(np.stack(stack), group)
+        pvec = shard_rows(torch.cat(pv), group)
+        out = all_gather_w(denoise_fn(params, batch, pvec), group, dim=0)
+        out = out.cpu().numpy()
         for k, (i, clean) in enumerate(chunk):
             h, w = padded[k][1]
             handle_one(i, clean, ys[k], out[k, :h, :w])
 
-    if mode == "sequential":
-        from ssdn_tpu_torch.infer.tiled import tiled_denoise_sequential
+    if mode != "full":
+        from ssdn_tpu_torch.infer.tiled import (
+            tiled_denoise_sequential,
+            tiled_denoise_sharded,
+        )
 
         for i in range(n):
             clean = to_internal(dataset[i])
             y_np, param = noisy_for(i, clean)
-            handle_one(i, clean, y_np, tiled_denoise_sequential(
-                cfg, params, y_np, param, tile_w=tile_w, halo=halo,
-                device=dev))
+            if mode == "sequential":
+                den = tiled_denoise_sequential(
+                    cfg, params, y_np, param, tile_w=tile_w, halo=halo,
+                    device=dev)
+            else:
+                den = tiled_denoise_sharded(
+                    cfg, params, y_np, param, group, halo=halo,
+                    strategy="window" if mode == "sharded-window" else "auto")
+            handle_one(i, clean, y_np, den)
     else:
         denoise_fn = make_denoise_fn(cfg, device=dev)
         pending: Dict[tuple, list] = {}

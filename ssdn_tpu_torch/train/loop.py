@@ -10,6 +10,16 @@ from (seed, step) (train/step.py) — so preemption-resume is exact.
 Host syncs: the loop reads the loss once per guard window (the guard's
 fetch) and the logged metrics once per log line; nothing is read back per
 step. The guard's snapshot of the last good state is a device copy.
+
+Data parallelism (``Trainer(..., group=)``, ``ssdn_tpu_torch.parallel``):
+every rank runs the same sampler on the same seed and trains on its rows
+of the global batch (``TrainStep``), so batches stay a function of (seed,
+step) and resume stays exact. Only rank 0 writes the workdir and prints;
+a barrier follows every save, and a restored checkpoint is read by rank 0
+and broadcast. Every decision that changes the state (guard
+rollback, rewind to best, early stop, best PSNR) reads rank 0's value,
+broadcast, never a rank's own reading: cuDNN picks its algorithms per
+process, so two ranks' own readings may differ in their last bits.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 from ssdn_tpu_torch.config import TrainConfig, to_json, train_config_from_json
 from ssdn_tpu_torch.data import Prefetcher, open_dataset, to_device
 from ssdn_tpu_torch.infer import evaluate_dataset
+from ssdn_tpu_torch.parallel import Group, barrier, broadcast_tree_
 from ssdn_tpu_torch.train.step import TrainState, init_state, make_train_step
 from ssdn_tpu_torch.utils.device import resolve_device
 
@@ -157,11 +168,25 @@ class MetricsLogger:
             self.tb.close()
 
 
+class _Silent:
+    """The metrics logger of a rank other than 0: writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    log_image = close = log
+
+
+def _quiet(*args, **kwargs):
+    pass
+
+
 class Trainer:
     """The training loop on ``device`` (default cuda; raises without a GPU
     unless device="cpu"). On the card, batches reach the step through the
     Prefetcher's workers, which copy them host-to-device on streams of
-    their own (``data.to_device``)."""
+    their own (``data.to_device``). With a ``group`` the loop is data-
+    parallel over its ranks on ``group.device`` (module docstring)."""
 
     def __init__(
         self,
@@ -176,18 +201,24 @@ class Trainer:
         prefetch_depth: int = 12,
         prefetch_threads: int = 4,
         device=None,
+        group: Optional[Group] = None,
     ):
+        self.group = group
+        self.rank0 = group is None or group.rank == 0
+        self._print = print if self.rank0 else _quiet
         # profiling: a torch.profiler trace of the window that holds step
         # start + profile_window[0], written to profile_dir/trace.json
-        self.profile_dir = profile_dir
+        self.profile_dir = profile_dir if self.rank0 else None
         self.profile_window = profile_window
-        self.device = resolve_device(device)
+        self.device = (group.device if group is not None
+                       else resolve_device(device))
         self.cfg = cfg
         self.workdir = workdir
         self.log_interval = log_interval
         self.prefetch_depth = prefetch_depth
         self.prefetch_threads = prefetch_threads
-        save_config(workdir, cfg)
+        if self.rank0:
+            save_config(workdir, cfg)
         self.dataset = open_dataset(train_data, grayscale=cfg.grayscale)
         self.eval_dataset = (
             open_dataset(eval_data, grayscale=cfg.grayscale)
@@ -214,7 +245,7 @@ class Trainer:
             except Exception:
                 eh = ew = 0
             if max(eh, ew) > cfg.patch_size:
-                print(
+                self._print(
                     f"[warn] training patch {cfg.patch_size}px is smaller "
                     f"than the eval images ({eh}x{ew}) and below the ~64px "
                     f"size-generalization floor of the 5-level U-Net: eval "
@@ -231,7 +262,9 @@ class Trainer:
         # (seed, step) exact-resume contract. The first run records the
         # resolved backend; later runs reuse it.
         backend_path = os.path.join(workdir, "sampler_backend.json")
-        if sampler_backend == "auto" and os.path.exists(backend_path):
+        # rank 0 alone reads the workdir (others take its backend below)
+        if (self.rank0 and sampler_backend == "auto"
+                and os.path.exists(backend_path)):
             with open(backend_path) as f:
                 sampler_backend = json.load(f)["backend"]
         self.sampler = make_sampler(
@@ -242,10 +275,21 @@ class Trainer:
             "native" if isinstance(self.sampler, NativePatchSampler)
             else "python"
         )
-        if not os.path.exists(backend_path):
+        if group is not None:
+            # every rank must crop rank 0's batches: run rank 0's backend
+            flag = torch.tensor([resolved == "native"], dtype=torch.int32,
+                                device=self.device)
+            want = ("native" if int(broadcast_tree_(flag, group)[0])
+                    else "python")
+            if want != resolved:
+                self.sampler = make_sampler(
+                    self.dataset, cfg.patch_size, cfg.batch_size,
+                    seed=cfg.seed, backend=want)
+                resolved = want
+        if self.rank0 and not os.path.exists(backend_path):
             with open(backend_path, "w") as f:
                 json.dump({"backend": resolved}, f)
-        else:
+        elif self.rank0:
             with open(backend_path) as f:
                 recorded = json.load(f)["backend"]
             if recorded != resolved:
@@ -255,7 +299,7 @@ class Trainer:
                     f"stream will differ from the original run",
                     flush=True,
                 )
-        self.step_fn = make_train_step(cfg, device=self.device)
+        self.step_fn = make_train_step(cfg, device=self.device, group=group)
         self.ckpt = CheckpointManager(workdir, cfg)
         self.best_ckpt = CheckpointManager(workdir, cfg, subdir="ckpt_best",
                                            max_to_keep=1)
@@ -264,14 +308,48 @@ class Trainer:
         self._best_path = os.path.join(workdir, "best_psnr.json")
         self.eval_bad_streak = 0
         self.best_psnr = float("-inf")
-        if os.path.exists(self._best_path):
+        if self.rank0 and os.path.exists(self._best_path):
             with open(self._best_path) as f:
                 self.best_psnr = float(json.load(f)["psnr"])
-        self.logger = MetricsLogger(workdir)
+        self.best_psnr = self._agreed(self.best_psnr)
+        self.logger = MetricsLogger(workdir) if self.rank0 else _Silent()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _agreed(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank (``value`` itself without a
+        group): what every decision that changes the state reads."""
+        if self.group is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        return float(broadcast_tree_(t, self.group)[0])
+
+    def _save(self, mgr: CheckpointManager, state: TrainState) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.rank0:
+            mgr.save(state)
+        barrier(self.group)
+
+    def _replicate(self, state: TrainState) -> TrainState:
+        """Rank 0's state, step included, on every rank (``replicated``'s
+        placement)."""
+        if self.group is None:
+            return state
+        step = torch.tensor([state.step], dtype=torch.int64, device=self.device)
+        broadcast_tree_({"p": state.params, "o": state.opt_state, "s": step},
+                        self.group)
+        return dataclasses.replace(state, step=int(step[0]))
+
+    def _restore(self, mgr: CheckpointManager) -> TrainState:
+        """``mgr``'s latest checkpoint on every rank: rank 0 reads it, the
+        others receive it into a fresh state's buffers and read nothing of
+        the workdir."""
+        state = init_state(self.cfg, device=self.device)
+        if self.rank0:
+            state = mgr.restore(state)
+        return self._replicate(state)
 
     def _eval(self, state: TrainState, step: int) -> Optional[float]:
         if self.eval_dataset is None:
@@ -279,46 +357,48 @@ class Trainer:
         res = evaluate_dataset(
             self.cfg, state.params, self.eval_dataset, return_images=2,
             eval_batch=4,  # same-shaped eval sets batch per forward
-            device=self.device,
+            device=self.device, group=self.group,
         )
+        psnr_mean = self._agreed(res["psnr_mean"])
         self.logger.log(
             step,
-            {"psnr": res["psnr_mean"], "noisy_psnr": res["noisy_psnr_mean"]},
+            {"psnr": psnr_mean, "noisy_psnr": res["noisy_psnr_mean"]},
             prefix="eval",
         )
         for i, trio in enumerate(res.get("images", [])):
             self.logger.log_image(step, f"eval/{i}/noisy", trio["noisy"])
             self.logger.log_image(step, f"eval/{i}/denoised", trio["denoised"])
-        print(
-            f"[eval @ {step}] psnr {res['psnr_mean']:.3f} dB "
+        self._print(
+            f"[eval @ {step}] psnr {psnr_mean:.3f} dB "
             f"(noisy {res['noisy_psnr_mean']:.3f})",
             flush=True,
         )
-        if res["psnr_mean"] > self.best_psnr:
-            self.best_psnr = res["psnr_mean"]
-            self.best_ckpt.save(state)
-            with open(self._best_path, "w") as f:
-                json.dump({"psnr": self.best_psnr, "step": step}, f)
+        if psnr_mean > self.best_psnr:
+            self.best_psnr = psnr_mean
+            self._save(self.best_ckpt, state)
+            if self.rank0:
+                with open(self._best_path, "w") as f:
+                    json.dump({"psnr": self.best_psnr, "step": step}, f)
         # eval-quality degradation streak (TrainConfig.eval_patience)
-        if res["psnr_mean"] < self.best_psnr - self.cfg.eval_patience_delta:
+        if psnr_mean < self.best_psnr - self.cfg.eval_patience_delta:
             self.eval_bad_streak += 1
         else:
             self.eval_bad_streak = 0
-        return res["psnr_mean"]
+        return psnr_mean
 
     def train(self, resume: bool = True) -> TrainState:
         cfg = self.cfg
-        state = init_state(cfg, device=self.device)
-        if resume and self.ckpt.latest_step() is not None:
-            state = self.ckpt.restore(state)
-            print(f"resumed from step {int(state.step)}", flush=True)
+        if resume and self._agreed(self.rank0
+                                   and self.ckpt.latest_step() is not None):
+            state = self._restore(self.ckpt)
+            self._print(f"resumed from step {int(state.step)}", flush=True)
         else:
             # No checkpoint to resume => this run starts from step 0 even
             # with resume=True: a stale best_psnr.json / ckpt_best from a
             # previous run in this workdir would falsely trip eval-patience
             # and feed old weights to the guard escalation.
             if self.best_psnr != float("-inf"):
-                print(
+                self._print(
                     f"[fresh run] discarding stale best (psnr "
                     f"{self.best_psnr:.3f}) from a previous run in this "
                     "workdir",
@@ -326,10 +406,13 @@ class Trainer:
                 )
                 self.best_psnr = float("-inf")
                 self.eval_bad_streak = 0
-                if os.path.exists(self._best_path):
+                if self.rank0 and os.path.exists(self._best_path):
                     os.remove(self._best_path)
-            for s_ in self.best_ckpt.all_steps():
-                self.best_ckpt.delete(s_)
+            if self.rank0:
+                for s_ in self.best_ckpt.all_steps():
+                    self.best_ckpt.delete(s_)
+            barrier(self.group)
+            state = self._replicate(init_state(cfg, device=self.device))
         start = int(state.step)
         todo = cfg.iterations - start
         if todo <= 0:
@@ -417,13 +500,14 @@ class Trainer:
                         nxt = (step // iv + 1) * iv
                         window_end = min(window_end, nxt)
                 state, metrics = run_window(state, step, window_end)
-                loss = float(metrics["loss"])  # the window's one host sync
+                # the window's one host sync (rank 0's, on every rank)
+                loss = self._agreed(float(metrics["loss"]))
                 if not np.isfinite(loss) or (
                     guard_on
                     and guard_loss_ema is not None
                     and loss > guard_loss_ema + guard_margin()
                 ):
-                    print(
+                    self._print(
                         f"[guard @ {window_end}] loss {loss:.3f} vs ema "
                         f"{guard_loss_ema if guard_loss_ema is None else round(guard_loss_ema, 3)}"
                         f" (margin {guard_margin():.3g})"
@@ -447,30 +531,31 @@ class Trainer:
                     if (
                         not guard_escalated
                         and guard_streak >= max(guard_max_consecutive // 2, 1)
-                        and self.best_ckpt.latest_step() is not None
+                        and self._agreed(
+                            self.rank0
+                            and self.best_ckpt.latest_step() is not None)
                     ):
                         guard_escalated = True
-                        print(
+                        self._print(
                             f"[guard @ {window_end}] {guard_streak} consecutive "
                             "rollbacks — rewinding weights to ckpt_best "
                             "(step counter keeps advancing)",
                             flush=True,
                         )
-                        best = self.best_ckpt.restore(
-                            init_state(cfg, device=self.device))
+                        best = self._restore(self.best_ckpt)
                         state = dataclasses.replace(best, step=window_end)
                         good_state = _clone_state(state)
                         # keep the loss EMA/deviation stats: they describe
                         # the healthy basin being rewound to, so continued
                         # spiking still counts toward the early-stop limit
                     if guard_streak >= guard_max_consecutive:
-                        print(
+                        self._print(
                             f"[guard] {guard_streak} consecutive rollbacks — "
                             "training has reached an unstable region; "
                             "early-stopping at the last good state",
                             flush=True,
                         )
-                        self.ckpt.save(state)
+                        self._save(self.ckpt, state)
                         break
                     continue
                 guard_streak = 0
@@ -494,7 +579,7 @@ class Trainer:
                     )
                     t0, tn0 = time.perf_counter(), next_step
                     self.logger.log(next_step, m)
-                    print(
+                    self._print(
                         f"[{next_step}/{cfg.iterations}] loss {m['loss']:.4f} "
                         f"({m['patches_per_sec']:.1f} patches/s)",
                         flush=True,
@@ -505,7 +590,7 @@ class Trainer:
                         cfg.eval_patience > 0
                         and self.eval_bad_streak >= cfg.eval_patience
                     ):
-                        print(
+                        self._print(
                             f"[eval-patience @ {next_step}] {self.eval_bad_streak} "
                             f"consecutive evals > {cfg.eval_patience_delta:g} dB "
                             f"below the best ({self.best_psnr:.3f}) — early "
@@ -518,11 +603,11 @@ class Trainer:
                      and next_step % cfg.snapshot_interval == 0)
                     or next_step == cfg.iterations
                 ):
-                    self.ckpt.save(state)
+                    self._save(self.ckpt, state)
             # unconditional final save — a guard rollback on the last
             # window would otherwise skip the final snapshot
-            if self.ckpt.latest_step() != int(state.step):
-                self.ckpt.save(state)
+            if self._agreed(self.ckpt.latest_step() != int(state.step)):
+                self._save(self.ckpt, state)
         finally:
             prefetch.close()
             self.ckpt.wait_until_finished()

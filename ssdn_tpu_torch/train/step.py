@@ -17,13 +17,21 @@ optional global-norm clip in optax's form; the learning rate and the blind
 regulariser weight are read at the pre-increment step, as optax's
 schedules are. Updates are functional: a step returns new tensors and
 leaves the state it was given as it was.
+
+Data parallelism (``group``, ``ssdn_tpu_torch.parallel``): every rank draws
+the GLOBAL noisy batch from the step's generator and keeps its rows, so a
+DP step is the single-device step at the same seed, as the JAX package's
+sharded jit is. The gradients are averaged over the ranks between
+``loss_and_grads`` and ``apply_grads`` (the clip sees the global norm), the
+beta-NLL weights are normalised by their mean over every rank's rows, and
+the metrics are averaged over the ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -38,6 +46,7 @@ from ssdn_tpu_torch.config import (
 )
 from ssdn_tpu_torch.models import blindspot_unet
 from ssdn_tpu_torch.noise import add_noise
+from ssdn_tpu_torch.parallel import Group, mean_grads_, pmean, shard_rows
 from ssdn_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -146,11 +155,15 @@ def step_seed(seed: int, step: int) -> int:
 
 class TrainStep:
     """``step(state, batch_u8) -> (state, metrics)``; ``step_on`` takes an
-    already noisy batch (the tests feed both packages one numpy batch)."""
+    already noisy batch (the tests feed both packages one numpy batch).
+    With a ``group``, ``batch_u8`` is the global batch and ``step_on`` takes
+    the rank's rows."""
 
-    def __init__(self, cfg: TrainConfig, *, device=None):
+    def __init__(self, cfg: TrainConfig, *, device=None,
+                 group: Optional[Group] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = group
         self.blindspot = pipeline_blindspot(cfg.pipeline)
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
         self.lr = lr_schedule(cfg)
@@ -178,8 +191,11 @@ class TrainStep:
         return x, y, noise_params, y2
 
     def loss(self, params: Params, x, y, noise_params, y2=None, step: int = 0):
-        """(loss, aux) of the configured pipeline."""
+        """(loss, aux) of the configured pipeline, over the rows given."""
         cfg = self.cfg
+        group = self.group
+        batch_mean = (torch.mean if group is None
+                      else lambda t: pmean(torch.mean(t), group))
         if cfg.pipeline == Pipeline.SSDN:
             out = self.forward(params, y)
             if "noise_scalar" in params:
@@ -190,7 +206,8 @@ class TrainStep:
             return estimator.nll(
                 out, y, cfg.noise, noise_params,
                 blind_reg=self.blind_reg(step), beta=cfg.nll_beta,
-                robust=cfg.robust_nll, bound=cfg.bound_outputs)
+                robust=cfg.robust_nll, bound=cfg.bound_outputs,
+                batch_mean=batch_mean)
         if cfg.pipeline == Pipeline.SSDN_MSE:
             # mu-only ablation against the noisy target (the blind spot
             # rules out the identity)
@@ -242,20 +259,30 @@ class TrainStep:
                           step=count)
 
     def step_on(self, state: TrainState, x, y, noise_params, y2=None):
-        """One update from an already noisy batch: (state, metrics)."""
+        """One update from an already noisy batch (the rank's rows under a
+        group): (state, metrics)."""
         loss, aux, grads = self.loss_and_grads(state.params, x, y,
                                                noise_params, y2, state.step)
-        metrics = {"loss": loss, "lr": self.lr(state.step)}
+        mean_grads_(grads, self.group)
+        metrics = {"loss": pmean(loss, self.group), "lr": self.lr(state.step)}
         for k, v in aux.items():
-            metrics[k] = torch.mean(v.detach().float())
+            metrics[k] = pmean(torch.mean(v.detach().float()), self.group)
         return self.apply_grads(state, grads), metrics
 
+    def rows(self, x, y, noise_params, y2=None):
+        """The rank's rows of a global (x, y, noise_params, y2)."""
+        g = self.group
+        return (shard_rows(x, g), shard_rows(y, g),
+                {k: shard_rows(v, g) for k, v in noise_params.items()},
+                None if y2 is None else shard_rows(y2, g))
+
     def __call__(self, state: TrainState, batch_u8):
-        x, y, noise_params, y2 = self.noisy_batch(batch_u8, state.step)
-        return self.step_on(state, x, y, noise_params, y2)
+        noisy = self.noisy_batch(batch_u8, state.step)
+        return self.step_on(state, *self.rows(*noisy))
 
 
-def make_train_step(cfg: TrainConfig, *, device=None) -> TrainStep:
+def make_train_step(cfg: TrainConfig, *, device=None,
+                    group: Optional[Group] = None) -> TrainStep:
     """The training step for ``cfg`` on ``device`` (default cuda; raises
-    without a GPU unless device="cpu")."""
-    return TrainStep(cfg, device=device)
+    without a GPU unless device="cpu"), data-parallel over ``group``."""
+    return TrainStep(cfg, device=device, group=group)

@@ -815,3 +815,107 @@ def test_sequential_tiling_equals_full_on_the_card(cuda, arm):
     assert counts == {"lax": (0, 0), "head_pallas": (0, 8),
                       "conv_pallas": (24 * 8, 0)}[arm]
     np.testing.assert_allclose(tiled, whole, rtol=0, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A process group of world size 1 over NCCL in this process (no
+    launcher: ``init_group`` keeps its store in the process)."""
+    from ssdn_tpu_torch import parallel
+
+    group = parallel.init_group()
+    assert (group.world, group.backend) == (1, "nccl")
+    yield group
+    parallel.destroy_group()
+
+
+def _small_cfg(conv, head, **over):
+    from ssdn_tpu_torch.config import ModelConfig, TrainConfig, parse_noise_style
+
+    return TrainConfig(noise=parse_noise_style("gauss25"), model=ModelConfig(
+        in_channels=3, compute_dtype="float32", enc_features=16,
+        dec_features=32, nin_a_features=64, nin_b_features=32,
+        conv_backend=conv, head_backend=head), patch_size=64, batch_size=4,
+        **over)
+
+
+def test_ppermute_over_nccl_at_world_size_one(nccl_group):
+    from ssdn_tpu_torch.parallel import all_gather_w, pmean, ppermute
+
+    t = torch.arange(24, dtype=torch.float32, device="cuda").reshape(1, 2, 4, 3)
+    torch.testing.assert_close(ppermute(t[:, :, -1:], [(0, 0)], nccl_group),
+                               t[:, :, -1:])
+    assert not ppermute(t, [], nccl_group).any()
+    torch.testing.assert_close(all_gather_w(t, nccl_group), t)
+    torch.testing.assert_close(pmean(t, nccl_group), t)
+
+
+@pytest.mark.parametrize("arm", ["conv_pallas", "head_pallas"])
+def test_dp_step_at_world_size_one_is_the_plain_step(nccl_group, arm,
+                                                     monkeypatch):
+    """Two data-parallel steps over NCCL at world size 1 against the plain
+    step on the same uint8 batches, with cuDNN held to its deterministic
+    algorithms (its default backward need not repeat its bits from call to
+    call): the collectives are sums of one rank, so the arithmetic is the
+    same and the losses and params must be equal bit for bit. K1 12
+    launches per step in the conv arm, K2' and K3 one each in the head
+    arm."""
+    from ssdn_tpu_torch.train import step as tstep
+
+    conv, head = {"conv_pallas": ("pallas", "lax"),
+                  "head_pallas": ("lax", "pallas")}[arm]
+    cfg = _small_cfg(conv, head)
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+               for _ in range(2)]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = []
+    init = tstep.init_state(cfg).params
+    for group in (None, nccl_group):
+        ts = tstep.make_train_step(cfg, group=group)
+        state = tstep.init_state(cfg)
+        before = (K1.launches, K2.launches_save_h1, K2.launches_bwd)
+        losses = []
+        for b in batches:
+            state, m = ts(state, b)
+            losses.append(float(m["loss"]))
+        counts = (K1.launches - before[0], K2.launches_save_h1 - before[1],
+                  K2.launches_bwd - before[2])
+        assert counts == {"conv_pallas": (24, 0, 0),
+                          "head_pallas": (0, 2, 2)}[arm]
+        runs.append((losses, state.params))
+    assert runs[1][0] == runs[0][0]
+    for k in init:
+        for n in init[k]:
+            assert torch.equal(runs[1][1][k][n], runs[0][1][k][n]), f"{k}.{n}"
+            assert not torch.equal(runs[0][1][k][n], init[k][n]), f"{k}.{n}"
+
+
+@pytest.mark.parametrize("arm,strategy", [
+    ("lax", "perlevel"), ("lax", "window"), ("head_pallas", "auto"),
+    ("conv_pallas", "auto")])
+def test_sharded_tiling_at_world_size_one_on_the_card(nccl_group, arm,
+                                                      strategy):
+    """``tiled_denoise_sharded`` over NCCL at world size 1 against the
+    full-image path, fp32 at narrow widths on a 32x1024 image: the window
+    modes evaluate one window (the whole image: K1 24 launches in the conv
+    arm, K2 one in the head arm), the per-level program none."""
+    from ssdn_tpu_torch.infer import full
+    from ssdn_tpu_torch.infer.tiled import tiled_denoise_sharded
+
+    conv, head = {"lax": ("lax", "lax"), "head_pallas": ("lax", "pallas"),
+                  "conv_pallas": ("pallas", "lax")}[arm]
+    cfg = _small_cfg(conv, head)
+    params = bu.init_params(torch.Generator().manual_seed(0), 3, 9, enc=16,
+                            dec=32, nin_a=64, nin_b=32, device="cuda")
+    noisy = np.random.default_rng(3).uniform(
+        -0.5, 0.5, (32, 1024, 3)).astype(np.float32)
+    sigma = np.full((1,), 25 / 255, np.float32)
+    k1, k2 = K1.launches, K2.launches
+    out = tiled_denoise_sharded(cfg, params, noisy, sigma, nccl_group,
+                                strategy=strategy)
+    counts = (K1.launches - k1, K2.launches - k2)
+    whole = full.denoise_image(full.make_denoise_fn(cfg), params, noisy, sigma)
+    assert counts == {"lax": (0, 0), "head_pallas": (0, 1),
+                      "conv_pallas": (24, 0)}[arm]
+    np.testing.assert_allclose(out, whole, rtol=0, atol=1e-4)

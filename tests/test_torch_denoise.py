@@ -180,12 +180,15 @@ def test_cli_denoise_on_cpu(tmp_path):
     out = outdir / "shot_denoised.png"
     assert out.exists()
     assert load_image(str(out)).shape == (64, 64, 3)
-    # --tiled sequential is ported (tests/test_torch_tiled.py); the sharded
-    # mode comes with the parallel slice
-    with pytest.raises(NotImplementedError, match="slice"):
-        main(["--device", "cpu", "--pretrained", "gauss25_rgb",
-              "--input", str(inp), "--output", str(outdir),
-              "--tiled", "sharded"])
+    # --tiled sharded without a launcher runs a group of one (gloo on the
+    # CPU): the untiled image, up to one PNG level (tests/test_torch_tiled.py
+    # and test_torch_sharded.py hold the arrays to 1e-4)
+    main(["--device", "cpu", "--pretrained", "gauss25_rgb", "--input",
+          str(inp), "--output", str(tmp_path / "sharded"), "--param", "25",
+          "--tiled", "sharded"])
+    sharded = load_image(str(tmp_path / "sharded" / "shot_denoised.png"))
+    assert np.abs(sharded.astype(int)
+                  - load_image(str(out)).astype(int)).max() <= 1
     # --workdir is ported (tests/test_torch_train_cli.py); a directory that
     # holds no training run is refused
     with pytest.raises(FileNotFoundError):

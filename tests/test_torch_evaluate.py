@@ -23,6 +23,7 @@ from ssdn_tpu_torch.data import open_dataset
 from ssdn_tpu_torch.infer import evaluate_dataset
 from ssdn_tpu_torch.infer import full as tfull
 from ssdn_tpu_torch.models.blindspot_unet import params_from_jax
+from ssdn_tpu_torch.parallel import Group
 from ssdn_tpu_torch.train.loop import load_config
 from ssdn_tpu_torch.train.step import init_state
 from ssdn_tpu_torch.utils.images import to_internal
@@ -94,6 +95,44 @@ def test_psnr_matches_the_jax_package_at_identical_weights(monkeypatch):
         assert ours["n_images"] == 3
 
 
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_group_eval_equals_one_process(world):
+    """``evaluate_dataset`` over gloo ranks: mode "full" with a group (DP
+    eval: 3 images at eval_batch 3, padded to a multiple of the world
+    size, each rank denoising its rows) and the sharded modes, against
+    one process's mode "full"; every rank returns the same dict."""
+    import torch_dist
+
+    jcfg = JTrainConfig(noise=jparse_noise_style("gauss25"),
+                        model=JModelConfig(in_channels=3, **TINY))
+    cfg = TrainConfig(noise=parse_noise_style("gauss25"),
+                      model=ModelConfig(in_channels=3, **TINY))
+    tree = {k: {n: np.asarray(v) for n, v in leaf.items()}
+            for k, leaf in jinit_state(jcfg).params.items()}
+    # 128 px: a multiple of 32 * world, so the per-level strips need no
+    # pad beyond the untiled image's (tiled_denoise_perlevel's docstring)
+    ref = evaluate_dataset(cfg, params_from_jax(tree, device="cpu"),
+                           open_dataset("synthetic:3:128"), return_images=1,
+                           device="cpu")
+    modes = [("full", 3), ("sharded", 1), ("sharded-window", 1)]
+    runs = torch_dist.run(torch_dist.evaluate, world, cfg, tree,
+                          "synthetic:3:128", modes)
+    for mode, _ in modes:
+        ours = runs[0][mode]
+        for r in range(1, world):
+            assert runs[r][mode]["psnr_per_image"] == ours["psnr_per_image"]
+            np.testing.assert_array_equal(runs[r][mode]["denoised0"],
+                                          ours["denoised0"])
+        assert ours["n_images"] == 3
+        np.testing.assert_allclose(ours["psnr_per_image"],
+                                   ref["psnr_per_image"], atol=PSNR_ATOL_DB,
+                                   err_msg=mode)
+        assert ours["noisy_psnr_mean"] == ref["noisy_psnr_mean"]
+        np.testing.assert_allclose(ours["denoised0"],
+                                   ref["images"][0]["denoised"],
+                                   atol=IMAGE_ATOL, err_msg=mode)
+
 def test_eval_noise_is_per_image_and_repeatable():
     cfg = TrainConfig(noise=parse_noise_style("gauss25"),
                       model=ModelConfig(in_channels=3, **TINY))
@@ -115,8 +154,11 @@ def test_streaming_refused_and_tiled_modes_raise():
         evaluate_dataset(cfg, None, open_dataset("synthetic:inf:64"))
     ds = open_dataset("synthetic:1:32")
     for mode in ("sharded", "sharded-window"):
-        with pytest.raises(NotImplementedError, match="10b"):
+        with pytest.raises(ValueError, match="process group"):
             evaluate_dataset(cfg, None, ds, mode=mode, device="cpu")
+    two = Group(rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="eval_batch > 1"):
+        evaluate_dataset(cfg, None, ds, device="cpu", group=two)
     with pytest.raises(ValueError, match="requires mode='full'"):
         evaluate_dataset(cfg, None, ds, mode="sequential", eval_batch=2)
 
@@ -201,11 +243,24 @@ def test_single_dataset_json_backward_compatible(workdir, tmp_path):
     assert "psnr_mean" in payload and "psnr_per_image" in payload
 
 
-def test_cli_refuses_what_is_not_ported(workdir):
-    for extra in (["--tiled", "sharded"], ["--data-parallel"]):
-        with pytest.raises(NotImplementedError):
-            eval_main(["--workdir", str(workdir), "--dataset",
-                       "synthetic:1:64", *extra])
+def test_cli_refuses_what_is_not_ported(workdir, tmp_path):
+    """Everything is ported: the sharded modes and --data-parallel run a
+    group of one without a launcher and score as --tiled full does; the
+    CLI still refuses a checkpoint the workdir does not hold."""
+    runs = {}
+    for name, extra in (("full", []), ("sharded", ["--tiled", "sharded"]),
+                        ("window", ["--tiled", "sharded-window"]),
+                        ("dp", ["--data-parallel"])):
+        out = tmp_path / f"{name}.json"
+        eval_main(["--workdir", str(workdir), "--dataset", "synthetic:2:64",
+                   "--device", "cpu", "--json-out", str(out), *extra])
+        runs[name] = json.loads(out.read_text())["psnr_per_image"]
+    # window and DP eval run the full image's forward; the per-level trunk
+    # ("sharded") is the literal program, whose bf16 roundings (this
+    # workdir trains in bf16) differ from the fused decoder's
+    for name in ("window", "dp"):
+        np.testing.assert_allclose(runs[name], runs["full"], atol=1e-3)
+    np.testing.assert_allclose(runs["sharded"], runs["full"], atol=0.05)
     with pytest.raises(FileNotFoundError, match="ckpt_best"):
         eval_main(["--workdir", str(workdir), "--dataset", "synthetic:1:64",
                    "--which", "best"])

@@ -14,6 +14,7 @@ two frameworks differ only in summation order, hence rtol = atol = 1e-4
 """
 
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -313,10 +314,13 @@ def test_cli_denoise_sequential(exported, tmp_path, monkeypatch):
         assert img.shape == (32, 896, 3)
         np.testing.assert_allclose(img, whole[name], rtol=0, atol=1e-4)
         np.testing.assert_allclose(img, theirs[name], **TOL)
-    with pytest.raises(NotImplementedError, match="10b"):
-        _captured_denoise(monkeypatch, tutils, tmain, [
-            "--device", "cpu", "--workdir", str(wd), *common,
-            "--tiled", "sharded"])
+    # --tiled sharded without a launcher: a group of one, the whole image
+    sharded = _captured_denoise(monkeypatch, tutils, tmain, [
+        "--device", "cpu", "--workdir", str(wd), *common,
+        "--tiled", "sharded"])
+    assert sorted(sharded) == sorted(whole)
+    for name, img in sharded.items():
+        np.testing.assert_allclose(img, whole[name], rtol=0, atol=1e-4)
 
 
 def test_cli_evaluate_sequential(exported, tmp_path, monkeypatch):
@@ -347,3 +351,66 @@ def test_cli_evaluate_sequential(exported, tmp_path, monkeypatch):
                                    runs[other]["psnr_per_image"], rtol=0,
                                    atol=PSNR_ATOL_DB)
     assert runs["ours"]["n_images"] == 2
+
+
+def _torchrun(module, argv, world=2):
+    """``python -m torch.distributed.run --standalone`` of a port CLI on
+    the CPU (one torch thread per rank)."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), "-m", module, "--device", "cpu",
+         *argv], cwd=root, env=env, capture_output=True, text=True,
+        timeout=240)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return run.stdout
+
+
+def test_cli_sharded_and_data_parallel_at_world_size_two(exported, tmp_path):
+    """``cli.denoise --tiled sharded`` and ``cli.evaluate --data-parallel``
+    / ``--tiled sharded`` under torchrun with 2 CPU ranks, against one
+    process's ``--tiled full``: the same PNGs (up to one level: the arrays
+    agree to 1e-4, tests/test_torch_sharded.py), the same PSNRs; only rank
+    0 prints and writes."""
+    from ssdn_tpu_torch.cli.denoise import main as denoise_main
+    from ssdn_tpu_torch.cli.evaluate import main as eval_main
+    from ssdn_tpu_torch.utils import list_images, load_image
+
+    wd, _, indir = exported
+    common = ["--workdir", str(wd), "--input", str(indir), "--param", "25"]
+    out = _torchrun("ssdn_tpu_torch.cli.denoise", [
+        *common, "--output", str(tmp_path / "sharded"), "--tiled",
+        "sharded"])
+    assert out.count(" -> ") == 2  # rank 0's lines alone
+    denoise_main(["--device", "cpu", *common, "--output",
+                  str(tmp_path / "full")])
+    names = sorted(os.path.basename(p)
+                   for p in list_images(str(tmp_path / "full")))
+    assert names == ["img0_denoised.png", "img1_denoised.png"]
+    assert sorted(os.path.basename(p) for p in list_images(
+        str(tmp_path / "sharded"))) == names
+    for name in names:
+        a = load_image(str(tmp_path / "sharded" / name)).astype(int)
+        b = load_image(str(tmp_path / "full" / name)).astype(int)
+        assert np.abs(a - b).max() <= 1, name
+    runs = {}
+    for name, extra in (("dp", ["--data-parallel"]),
+                        ("sharded", ["--tiled", "sharded"])):
+        _torchrun("ssdn_tpu_torch.cli.evaluate", [
+            "--workdir", str(wd), "--dataset", str(indir), "--json-out",
+            str(tmp_path / f"{name}.json"), *extra])
+    eval_main(["--device", "cpu", "--workdir", str(wd), "--dataset",
+               str(indir), "--json-out", str(tmp_path / "one.json")])
+    for name in ("dp", "sharded", "one"):
+        runs[name] = json.loads((tmp_path / f"{name}.json").read_text())
+    for name in ("dp", "sharded"):
+        np.testing.assert_allclose(runs[name]["psnr_per_image"],
+                                   runs["one"]["psnr_per_image"],
+                                   atol=PSNR_ATOL_DB, err_msg=name)

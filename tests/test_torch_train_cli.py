@@ -56,8 +56,13 @@ def test_cli_needs_a_gpu_unless_cpu_and_refuses_data_parallel(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_main(argv)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        train_main([*argv, "--device", "cpu", "--data-parallel"])
+    # --data-parallel without a launcher trains a group of one (gloo on
+    # the CPU); tests/test_torch_parallel.py runs 2 ranks through torchrun
+    train_main([*argv, "--device", "cpu", "--data-parallel", "--batch-size",
+                "2", "--patch-size", "32", "--enc-features", "8",
+                "--dec-features", "16", "--nin-a-features", "32",
+                "--nin-b-features", "16", "--log-interval", "1"])
+    assert (tmp_path / "w" / "ckpt" / f"step_{1:010d}.pt").exists()
 
 
 def test_cli_trains_on_the_cpu_and_writes_its_workdir(tmp_path, capsys):
