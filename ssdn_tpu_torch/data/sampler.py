@@ -20,6 +20,8 @@ from typing import Iterator
 
 import numpy as np
 
+from ssdn_tpu_torch.utils.debug import span
+
 
 class PatchSampler:
     def __init__(self, dataset, patch_size: int, batch_size: int,
@@ -168,7 +170,8 @@ class Prefetcher:
                                n_threads):
                     if self._stop.is_set():
                         return
-                    batch = self.sampler.sample(s)
+                    with span("ssdn.data.sample"):
+                        batch = self.sampler.sample(s)
                     if transform is not None:
                         batch = transform(batch)
                     if not put_blocking(q, batch):
@@ -248,11 +251,12 @@ def to_device(device):
         stream = getattr(local, "stream", None)
         if stream is None:
             stream = local.stream = torch.cuda.Stream(device=device)
-        host = torch.from_numpy(batch).pin_memory()
-        with torch.cuda.stream(stream):
-            tensor = host.to(device, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
+        with span("ssdn.data.to_device"):
+            host = torch.from_numpy(batch).pin_memory()
+            with torch.cuda.stream(stream):
+                tensor = host.to(device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
         return DeviceBatch(tensor, event, host)
 
     return transform

@@ -34,6 +34,7 @@ from ssdn_tpu_torch.models import blindspot_unet
 from ssdn_tpu_torch.noise import add_noise
 from ssdn_tpu_torch.parallel import Group, all_gather_w, shard_rows
 from ssdn_tpu_torch.train.step import step_seed
+from ssdn_tpu_torch.utils.debug import span
 from ssdn_tpu_torch.utils.device import resolve_device
 from ssdn_tpu_torch.utils.images import pad_to_multiple, psnr, to_internal
 
@@ -56,22 +57,24 @@ def make_denoise_fn(cfg: TrainConfig, *, device=None):
 
     @torch.inference_mode()
     def denoise(params, y, sigma_or_param):
-        y = torch.as_tensor(y, dtype=torch.float32, device=dev)
-        out = blindspot_unet.apply(
-            params, y, blindspot=blindspot, compute_dtype=compute_dtype,
-            conv_backend=cfg.model.conv_backend,
-            conv_precision=cfg.model.conv_precision,
-            decoder_mode=cfg.model.decoder_mode,
-            head_backend=cfg.model.head_backend,
-        )
-        if cfg.pipeline == Pipeline.SSDN:
-            noise_params = runtime_noise_params(
-                cfg.noise, params,
-                torch.as_tensor(sigma_or_param, dtype=torch.float32,
-                                device=dev))
-            return estimator.posterior_mean(out, y, cfg.noise, noise_params,
-                                            bound=cfg.bound_outputs)
-        return estimator.mu_only(out, y.shape[-1])
+        with span("ssdn.infer.to_device"):
+            y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        with span("ssdn.infer.forward"):
+            out = blindspot_unet.apply(
+                params, y, blindspot=blindspot, compute_dtype=compute_dtype,
+                conv_backend=cfg.model.conv_backend,
+                conv_precision=cfg.model.conv_precision,
+                decoder_mode=cfg.model.decoder_mode,
+                head_backend=cfg.model.head_backend,
+            )
+            if cfg.pipeline == Pipeline.SSDN:
+                noise_params = runtime_noise_params(
+                    cfg.noise, params,
+                    torch.as_tensor(sigma_or_param, dtype=torch.float32,
+                                    device=dev))
+                return estimator.posterior_mean(
+                    out, y, cfg.noise, noise_params, bound=cfg.bound_outputs)
+            return estimator.mu_only(out, y.shape[-1])
 
     return denoise
 
@@ -109,10 +112,13 @@ def denoise_image(denoise_fn, params, noisy: np.ndarray, noise_param, *,
     denoise program, crops back. square=True additionally pads to a square
     (forces the single-4x-batch rotation fold; the model handles non-square
     natively)."""
-    padded, (h, w) = pad_to_multiple(noisy, blindspot_unet.STRIDE,
-                                     square=square)
-    out = denoise_fn(params, padded[None], noise_param)
-    return out[0, :h, :w].cpu().numpy()
+    with span("ssdn.infer.request"):
+        with span("ssdn.infer.pad"):
+            padded, (h, w) = pad_to_multiple(noisy, blindspot_unet.STRIDE,
+                                             square=square)
+        out = denoise_fn(params, padded[None], noise_param)
+        with span("ssdn.infer.to_host"):
+            return out[0, :h, :w].cpu().numpy()
 
 
 def evaluate_dataset(

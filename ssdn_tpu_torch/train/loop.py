@@ -38,6 +38,7 @@ from ssdn_tpu_torch.data import Prefetcher, open_dataset, to_device
 from ssdn_tpu_torch.infer import evaluate_dataset
 from ssdn_tpu_torch.parallel import Group, barrier, broadcast_tree_
 from ssdn_tpu_torch.train.step import TrainState, init_state, make_train_step
+from ssdn_tpu_torch.utils.debug import span
 from ssdn_tpu_torch.utils.device import resolve_device
 
 
@@ -328,9 +329,10 @@ class Trainer:
 
     def _save(self, mgr: CheckpointManager, state: TrainState) -> None:
         """Rank 0 writes the checkpoint; every rank waits for it."""
-        if self.rank0:
-            mgr.save(state)
-        barrier(self.group)
+        with span("ssdn.trainer.checkpoint"):
+            if self.rank0:
+                mgr.save(state)
+            barrier(self.group)
 
     def _replicate(self, state: TrainState) -> TrainState:
         """Rank 0's state, step included, on every rank (``replicated``'s
@@ -386,7 +388,9 @@ class Trainer:
             self.eval_bad_streak = 0
         return psnr_mean
 
-    def train(self, resume: bool = True) -> TrainState:
+    def _initial_state(self, resume: bool) -> TrainState:
+        """The latest checkpoint with ``resume`` when there is one, else a
+        fresh state (and the last run's best forgotten), on every rank."""
         cfg = self.cfg
         if resume and self._agreed(self.rank0
                                    and self.ckpt.latest_step() is not None):
@@ -413,10 +417,28 @@ class Trainer:
                     self.best_ckpt.delete(s_)
             barrier(self.group)
             state = self._replicate(init_state(cfg, device=self.device))
-        start = int(state.step)
-        todo = cfg.iterations - start
-        if todo <= 0:
-            return state
+        return state
+
+    def train(self, resume: bool = True) -> TrainState:
+        cfg = self.cfg
+        with span("ssdn.trainer.start"):
+            state = self._initial_state(resume)
+            start = int(state.step)
+            todo = cfg.iterations - start
+            if todo <= 0:
+                return state
+            good_state = _clone_state(state)  # the guard's snapshot
+            # ONE prefetch pipeline spans the whole run: windows tile
+            # [start, iterations) contiguously and a rollback advances the
+            # step counter to window_end, so the iterator stays aligned
+            # with the step counter either way.
+            on_card = self.device.type == "cuda"
+            prefetch = Prefetcher(
+                self.sampler, start, todo,
+                depth=self.prefetch_depth, n_threads=self.prefetch_threads,
+                transform=to_device(self.device) if on_card else None,
+            )
+            batches = iter(prefetch)
         step = start
 
         # Loss-spike rollback guard: the NLL objective can nucleate a
@@ -441,7 +463,6 @@ class Trainer:
         guard_dev_ema = None  # EMA of |loss - ema|; sets the relative margin
         guard_streak = 0
         guard_escalated = False  # rewind-to-best fires once per streak
-        good_state = _clone_state(state)
 
         def guard_margin():
             if guard_dev_ema is None:
@@ -449,17 +470,6 @@ class Trainer:
             return max(cfg.guard_margin_floor,
                        cfg.guard_margin_k * guard_dev_ema)
 
-        # ONE prefetch pipeline spans the whole run: windows tile
-        # [start, iterations) contiguously and a rollback advances the step
-        # counter to window_end, so the iterator stays aligned with the
-        # step counter either way.
-        on_card = self.device.type == "cuda"
-        prefetch = Prefetcher(
-            self.sampler, start, todo,
-            depth=self.prefetch_depth, n_threads=self.prefetch_threads,
-            transform=to_device(self.device) if on_card else None,
-        )
-        batches = iter(prefetch)
         profiled = False
 
         def run_window(state, from_step, to_step):
@@ -483,9 +493,10 @@ class Trainer:
                 return state, metrics
             metrics = None
             for _ in range(to_step - from_step):
-                batch = next(batches)
-                if on_card:
-                    batch = batch.wait()
+                with span("ssdn.trainer.next_batch"):
+                    batch = next(batches)
+                    if on_card:
+                        batch = batch.wait()
                 state, metrics = self.step_fn(state, batch)
             return state, metrics
 
@@ -500,76 +511,77 @@ class Trainer:
                         nxt = (step // iv + 1) * iv
                         window_end = min(window_end, nxt)
                 state, metrics = run_window(state, step, window_end)
-                # the window's one host sync (rank 0's, on every rank)
-                loss = self._agreed(float(metrics["loss"]))
-                if not np.isfinite(loss) or (
-                    guard_on
-                    and guard_loss_ema is not None
-                    and loss > guard_loss_ema + guard_margin()
-                ):
-                    self._print(
-                        f"[guard @ {window_end}] loss {loss:.3f} vs ema "
-                        f"{guard_loss_ema if guard_loss_ema is None else round(guard_loss_ema, 3)}"
-                        f" (margin {guard_margin():.3g})"
-                        f" — rolling back and skipping the window",
-                        flush=True,
-                    )
-                    # restore last good params/opt state; skip the window's
-                    # data by advancing the step counter without training
-                    state = dataclasses.replace(_clone_state(good_state),
-                                                step=window_end)
-                    step = window_end
-                    guard_streak += 1
-                    # Escalation: restore-and-skip can re-spike every window
-                    # when the snapshot is already inside an unstable basin.
-                    # Halfway to the early-stop limit, rewind the WEIGHTS to
-                    # the best-by-eval-PSNR checkpoint while keeping the
-                    # step counter, so training resumes from a known-good
-                    # basin on fresh data. `>=` + a fired-once flag: if
-                    # ckpt_best does not exist at the exact halfway streak,
-                    # re-check on every later rollback.
-                    if (
-                        not guard_escalated
-                        and guard_streak >= max(guard_max_consecutive // 2, 1)
-                        and self._agreed(
-                            self.rank0
-                            and self.best_ckpt.latest_step() is not None)
+                with span("ssdn.trainer.guard"):
+                    # the window's one host sync (rank 0's, on every rank)
+                    loss = self._agreed(float(metrics["loss"]))
+                    if not np.isfinite(loss) or (
+                        guard_on
+                        and guard_loss_ema is not None
+                        and loss > guard_loss_ema + guard_margin()
                     ):
-                        guard_escalated = True
                         self._print(
-                            f"[guard @ {window_end}] {guard_streak} consecutive "
-                            "rollbacks — rewinding weights to ckpt_best "
-                            "(step counter keeps advancing)",
+                            f"[guard @ {window_end}] loss {loss:.3f} vs ema "
+                            f"{guard_loss_ema if guard_loss_ema is None else round(guard_loss_ema, 3)}"
+                            f" (margin {guard_margin():.3g})"
+                            f" — rolling back and skipping the window",
                             flush=True,
                         )
-                        best = self._restore(self.best_ckpt)
-                        state = dataclasses.replace(best, step=window_end)
-                        good_state = _clone_state(state)
-                        # keep the loss EMA/deviation stats: they describe
-                        # the healthy basin being rewound to, so continued
-                        # spiking still counts toward the early-stop limit
-                    if guard_streak >= guard_max_consecutive:
-                        self._print(
-                            f"[guard] {guard_streak} consecutive rollbacks — "
-                            "training has reached an unstable region; "
-                            "early-stopping at the last good state",
-                            flush=True,
+                        # restore last good params/opt state; skip the window's
+                        # data by advancing the step counter without training
+                        state = dataclasses.replace(_clone_state(good_state),
+                                                    step=window_end)
+                        step = window_end
+                        guard_streak += 1
+                        # Escalation: restore-and-skip can re-spike every window
+                        # when the snapshot is already inside an unstable basin.
+                        # Halfway to the early-stop limit, rewind the WEIGHTS to
+                        # the best-by-eval-PSNR checkpoint while keeping the
+                        # step counter, so training resumes from a known-good
+                        # basin on fresh data. `>=` + a fired-once flag: if
+                        # ckpt_best does not exist at the exact halfway streak,
+                        # re-check on every later rollback.
+                        if (
+                            not guard_escalated
+                            and guard_streak >= max(guard_max_consecutive // 2, 1)
+                            and self._agreed(
+                                self.rank0
+                                and self.best_ckpt.latest_step() is not None)
+                        ):
+                            guard_escalated = True
+                            self._print(
+                                f"[guard @ {window_end}] {guard_streak} consecutive "
+                                "rollbacks — rewinding weights to ckpt_best "
+                                "(step counter keeps advancing)",
+                                flush=True,
+                            )
+                            best = self._restore(self.best_ckpt)
+                            state = dataclasses.replace(best, step=window_end)
+                            good_state = _clone_state(state)
+                            # keep the loss EMA/deviation stats: they describe
+                            # the healthy basin being rewound to, so continued
+                            # spiking still counts toward the early-stop limit
+                        if guard_streak >= guard_max_consecutive:
+                            self._print(
+                                f"[guard] {guard_streak} consecutive rollbacks — "
+                                "training has reached an unstable region; "
+                                "early-stopping at the last good state",
+                                flush=True,
+                            )
+                            self._save(self.ckpt, state)
+                            break
+                        continue
+                    guard_streak = 0
+                    guard_escalated = False
+                    if guard_loss_ema is None:
+                        guard_loss_ema = loss
+                    else:
+                        dev = abs(loss - guard_loss_ema)
+                        guard_dev_ema = (
+                            dev if guard_dev_ema is None
+                            else 0.9 * guard_dev_ema + 0.1 * dev
                         )
-                        self._save(self.ckpt, state)
-                        break
-                    continue
-                guard_streak = 0
-                guard_escalated = False
-                if guard_loss_ema is None:
-                    guard_loss_ema = loss
-                else:
-                    dev = abs(loss - guard_loss_ema)
-                    guard_dev_ema = (
-                        dev if guard_dev_ema is None
-                        else 0.9 * guard_dev_ema + 0.1 * dev
-                    )
-                    guard_loss_ema = 0.9 * guard_loss_ema + 0.1 * loss
-                good_state = _clone_state(state)
+                        guard_loss_ema = 0.9 * guard_loss_ema + 0.1 * loss
+                    good_state = _clone_state(state)
                 step = next_step = window_end
                 if (self.log_interval > 0 and next_step % self.log_interval == 0) or next_step == cfg.iterations:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -585,7 +597,8 @@ class Trainer:
                         flush=True,
                     )
                 if cfg.eval_interval > 0 and next_step % cfg.eval_interval == 0:
-                    self._eval(state, next_step)
+                    with span("ssdn.trainer.eval"):
+                        self._eval(state, next_step)
                     if (
                         cfg.eval_patience > 0
                         and self.eval_bad_streak >= cfg.eval_patience
@@ -609,8 +622,9 @@ class Trainer:
             if self._agreed(self.ckpt.latest_step() != int(state.step)):
                 self._save(self.ckpt, state)
         finally:
-            prefetch.close()
-            self.ckpt.wait_until_finished()
-            self.best_ckpt.wait_until_finished()
+            with span("ssdn.trainer.checkpoint"):
+                prefetch.close()
+                self.ckpt.wait_until_finished()
+                self.best_ckpt.wait_until_finished()
             self.logger.close()
         return state

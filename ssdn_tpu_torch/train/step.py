@@ -29,6 +29,7 @@ the metrics are averaged over the ranks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional
@@ -47,6 +48,7 @@ from ssdn_tpu_torch.config import (
 from ssdn_tpu_torch.models import blindspot_unet
 from ssdn_tpu_torch.noise import add_noise
 from ssdn_tpu_torch.parallel import Group, mean_grads_, pmean, shard_rows
+from ssdn_tpu_torch.utils.debug import span
 from ssdn_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -225,9 +227,11 @@ class TrainStep:
         """(loss, aux, grads): the loss and its gradient with respect to
         every leaf of ``params`` (a tree of the same shape)."""
         live = _map(lambda p: p.detach().requires_grad_(True), params)
-        loss, aux = self.loss(live, x, y, noise_params, y2, step)
+        with span("ssdn.train.loss"):
+            loss, aux = self.loss(live, x, y, noise_params, y2, step)
         leaves = _leaves(live)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("ssdn.train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         it = iter(g if g is not None else torch.zeros_like(p)
                   for g, p in zip(grads, leaves))
         return loss.detach(), aux, _map(lambda _: next(it), live)
@@ -263,11 +267,16 @@ class TrainStep:
         group): (state, metrics)."""
         loss, aux, grads = self.loss_and_grads(state.params, x, y,
                                                noise_params, y2, state.step)
-        mean_grads_(grads, self.group)
-        metrics = {"loss": pmean(loss, self.group), "lr": self.lr(state.step)}
-        for k, v in aux.items():
-            metrics[k] = pmean(torch.mean(v.detach().float()), self.group)
-        return self.apply_grads(state, grads), metrics
+        with (span("ssdn.train.allreduce") if self.group is not None
+              else contextlib.nullcontext()):
+            mean_grads_(grads, self.group)
+            metrics = {"loss": pmean(loss, self.group),
+                       "lr": self.lr(state.step)}
+            for k, v in aux.items():
+                metrics[k] = pmean(torch.mean(v.detach().float()), self.group)
+        with span("ssdn.train.adam"):
+            new = self.apply_grads(state, grads)
+        return new, metrics
 
     def rows(self, x, y, noise_params, y2=None):
         """The rank's rows of a global (x, y, noise_params, y2)."""
@@ -277,8 +286,10 @@ class TrainStep:
                 None if y2 is None else shard_rows(y2, g))
 
     def __call__(self, state: TrainState, batch_u8):
-        noisy = self.noisy_batch(batch_u8, state.step)
-        return self.step_on(state, *self.rows(*noisy))
+        with span("ssdn.train.step"):
+            with span("ssdn.train.noise"):
+                noisy = self.noisy_batch(batch_u8, state.step)
+            return self.step_on(state, *self.rows(*noisy))
 
 
 def make_train_step(cfg: TrainConfig, *, device=None,

@@ -1,5 +1,4 @@
 from ssdn_tpu_torch.utils.debug import (
-    StepTimer,
     assert_finite_tree,
     debug_nans,
     profile_trace,
@@ -16,7 +15,6 @@ from ssdn_tpu_torch.utils.images import (
 )
 
 __all__ = [
-    "StepTimer",
     "assert_finite_tree",
     "debug_nans",
     "profile_trace",

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-import ssdn_tpu.utils.debug as jdebug
 from ssdn_tpu import zoo as jzoo
 from ssdn_tpu.estimator.core import _ALPHA_HI, _ALPHA_LO
 from ssdn_tpu.estimator.core import estimate_sigma as jestimate_sigma
@@ -161,15 +160,6 @@ def test_parity_check_trains_both_arms(tmp_path, capsys):
 
 
 # ------------------------------- debug -------------------------------
-
-
-def test_step_timer_is_the_jax_packages(monkeypatch):
-    clock = iter([0.0, 1.0, 3.0, 3.5, 7.0, 7.25] * 2)
-    monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-    ours, theirs = debug.StepTimer(alpha=0.3), jdebug.StepTimer(alpha=0.3)
-    a = [ours.tick() for _ in range(6)]
-    b = [theirs.tick() for _ in range(6)]
-    assert a == b and a[0] is None and a[1] == 1.0
 
 
 @pytest.mark.parametrize("bad", [float("nan"), float("inf")])
