@@ -26,14 +26,18 @@ checks).
 ``--against DIR`` builds another checkout's ``csrc/nin_head_bwd.cu`` (e.g.
 the parent commit's tree) and, at the same two M in both dtypes, says
 whether every output's bits equal this tree's and times the two in turns
-(other, this, this, other). It imports no JAX; ``chip_smoke.py`` runs the
-full checks.
+(other, this, this, other). Each library's host time per call (the
+wrapper's Python, the TMA maps and the launches, the device idle before
+each call) is printed beside its device time. It imports no JAX;
+``chip_smoke.py`` runs the full checks.
 """
 
 import argparse
 import ctypes
 import os
+import statistics
 import sys
+import time
 
 import torch
 
@@ -156,6 +160,20 @@ def timed_in_turns(libs, args, reps):
     return times
 
 
+def host_us(run, reps):
+    """(least, median) host microseconds per call of ``run``, each call
+    made on an idle device and timed until it returns (its launches
+    queued)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return min(times), statistics.median(times)
+
+
 def run_case(name, m, nc, libs, reps, dt, seed):
     """Each library's errors against the twin and bits against the first
     library's, then the libraries timed in turns, each launch beside its
@@ -193,6 +211,10 @@ def run_case(name, m, nc, libs, reps, dt, seed):
                   f"{b_ms:.3f} ms ({by})")
         print(f"    (reduce) " + " / ".join(f"{p['reduce']:.3f}" for _, p in ts)
               + " ms")
+    for v in libs:
+        use(libs[v])
+        least, median = host_us(lambda: K2.nin_head_bwd(*args), max(reps, 20))
+        print(f"  {v:<12} host {least:.1f} us per call (median {median:.1f})")
     if dt == torch.float32:
         twin = cs.cuda_ms(torch, lambda: K2.torch_reference_bwd(*args), reps)
         lib = cs.cuda_ms(torch, cs.k3_library(torch, args), reps)

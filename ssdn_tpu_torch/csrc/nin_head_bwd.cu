@@ -45,27 +45,54 @@
 // re-read of x and h1 (about 9.7 GB per step in all, 2.9 ms).
 //
 // Two instantiations:
-//  - bf16, the flagship's dtype, on the tensor cores (mma.sync m16n8k16,
-//    bf16 in, fp32 accumulate; ldmatrix; cp.async). (a) keeps Wb (Na x Nb,
-//    72 KB at the model's widths) resident in shared memory for a
-//    persistent block's whole life: ldmatrix.trans reads it as the B of
-//    pre2 = h1 Wb, plain ldmatrix as the B of dh1 = dpre2 Wb^T, so no
-//    transposed copy is made. Wa_i, stored (C, Na), is already the
-//    column-major B of dx_i = dpre1 Wa_i^T; it streams through a 4-stage
-//    cp.async ring of 32-column chunks, branch after branch, three chunks
-//    in flight and the first three loaded while pre2 and dh1 run. dpre1
-//    overwrites h1's tile element by element once its mask is read. The
-//    masks and roundings run on the mma fragments in registers; dpre2,
-//    dpre1 and each dx_i leave from their shared tiles in 16-byte rows;
-//    (a) also writes g rounded to bf16 for (b).
-//    (b) streams 32-row stages of A and B through a 4-stage cp.async ring,
-//    reads A transposed with ldmatrix.trans (lrelu and the bf16 rounding
-//    of x applied on its fragments), and computes 96 x 128 output tiles
-//    (dWb as dWb^T, Nb x Na, so that its tiles fit). dba and dbb are
-//    products with a fragment of ones on the same tensor cores; dbc, the
-//    fp32 g's column sums, has a block of its own per split.
-//    Widths that are not multiples of 16, and ragged rows, are zero in
-//    shared memory and masked on store.
+//  - bf16, the flagship's dtype, on Hopper's warpgroup MMA (wgmma, bf16 in,
+//    fp32 accumulate) fed by the Tensor Memory Accelerator (TMA) through
+//    mbarriers (hopper_sm90.cuh). Both launches run one persistent block
+//    per SM and are warp-specialised: one warp keeps TMA loads in flight,
+//    two consumer warpgroups of 64 rows each run wgmma and the epilogues.
+//    (a) bwd_rows_tc_kernel, per tile of 128 rows (one warpgroup where two
+//      do not fit shared memory: Na 512):
+//      - per pass of 96 columns of Nb (one at the model's Nb 96): pre2 = h1
+//        Wb: A h1's TMA boxes (128-byte swizzle), B Wb's 64-row chunks from
+//        the ring, read MN-major; dh2 = g_lp Wc^T with g rounded to bf16
+//        straight into A registers (the next tile's g loads during this
+//        tile's dx_i) and B a window of Wc^T in 8 x 8 core matrices (96 x up
+//        to 64 columns of Nc: all of it, written once, at the model's
+//        widths; else rewritten per pass and per 64 columns of Nc);
+//      - h2 and dpre2 from the accumulators; dpre2 stays in registers as
+//        the A fragments of dh1 (an accumulator's n8 tiles 2i, 2i + 1 are
+//        the A fragment of k16 step i); past one pass, dh1 reads each
+//        pass's fragments back from this thread's own workspace stores;
+//      - dh1 = dpre2 Wb^T per 64 columns of Na, K over Nb pass by pass, B
+//        the same Wb chunks read K-major; dpre1 = mask(h1) dh1 stays in
+//        registers as dx_i's A (96 registers at Na 384) and is written over
+//        h1's boxes, which a second copying warp stores to the workspace
+//        (TMA) and refills with the next tile's h1 while this tile's dx_i
+//        run;
+//      - dx_i = dpre1 Wa_i^T, B Wa_i's 96 x 64 chunks from the ring, the
+//        branches in an order rotated by the block (the blocks read four
+//        different chunks from L2 at a time, not one: 3.0 -> 2.3 ms), masked
+//        by x_i and stored.
+//      One ring of 10 slots of 12 KB carries Wb (twice) and the Wa_i; a
+//      slot is released once the wgmma that read it is known complete. The
+//      rows of h2, dpre2, x_i and dx_i move as 16-byte pieces after a
+//      transpose within each quad of lanes (quad_t).
+//    (b) wgrad_tc_kernel: items of 128 x 192, two warpgroups of m64 x n192
+//      over a split's rows in 64-row stages through a 5-stage ring: dWa_i =
+//      lrelu(x_i)^T dpre1 (A^T's fragments by ldmatrix.trans from x's
+//      MN-major box, lrelu'd and rounded in registers; B dpre1's MN-major
+//      box) and dWb^T = dpre2^T h1 (so dWb's items are dpre2's 96 columns
+//      deep, not Na's 384), both per 128 rows of C or Nb; the small items:
+//      dWc = h2^T g_lp per 128 rows of Nb, and dbc. Three warps sum dba's
+//      and dbb's columns from the staged B and A. 130 blocks (a multiple of
+//      the 10 items of one shape per split) take those items, each keeping
+//      one place in every split, so that a split's items run side by side
+//      and read their shared rows from L2 once (3.0 -> 2.7 ms at a step's
+//      M, from items dealt round robin); the small ones follow on every
+//      block. Rows per split are whole stages.
+//    Masks and roundings run on the accumulator fragments; widths past C,
+//    Na, Nb and Nc and rows past M are zeros (TMA fills them) and are
+//    masked on store (TMA clips).
 //  - fp32, the parity path and the reference objective's training path,
 //    on the FMA pipes (TF32 would break the port's fp32 bars). (a) is
 //    0.70 TFLOP per batch-384 step, 10.4 ms at 67 TFLOP/s, against about
@@ -127,9 +154,13 @@
 //    is fmaf(1, b, acc)) and the zero rows past a split's end add exact
 //    zeros: the first kernel's bits.
 //
-// Left for later: wgmma and TMA, fusing (b) into (a) and dropping the
-// workspace. The ring depth, unroll, blocks per SM and the branch tiling of
-// (b) were measured on the H100 by k3_probe.py (PERF.md section 6).
+// Left for later: fusing (b)'s products into (a) and dropping the
+// workspace; a ring per warpgroup, so that one's epilogues overlap the
+// other's products. Sharing (a)'s weight chunks across a cluster of two
+// blocks (TMA multicast) was measured and did not pay: halving their L2
+// traffic left (a) at 2.21 ms. The ring depths, the branch rotation and the
+// swizzles were measured on the H100 by k3_probe.py and edited copies of
+// this file (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,8 +169,10 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper_sm90.cuh"
 #include "tc_bf16.cuh"
 
+using namespace ssdn_sm90;
 using namespace ssdn_tc;
 
 namespace {
@@ -148,7 +181,6 @@ constexpr int THREADS = 256;
 constexpr int MAX_BRANCHES = 4;
 constexpr int MAX_DEVICES = 64;
 
-constexpr int MAX_JOBS = MAX_BRANCHES + 3;
 
 __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.f ? v : slope * v;
@@ -1051,537 +1083,841 @@ reduce_splits_kernel(const float* partial, float* out, long long total,
   out[e] = s;
 }
 
-// ------------------ bf16 on the tensor cores: constants ------------------
+// ------------------ bf16 on the tensor cores: wgmma and TMA ------------------
 
-constexpr int SKEW = 8;          // bf16 added to every shared row: ldmatrix's
-                                 // 8 row addresses fall in 8 distinct banks
-constexpr int TC_ROWS = 64;      // (a) rows per tile
-constexpr int TC_THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int WA_CHUNK = 32;     // (a) Wa_i columns per ring stage
-constexpr int WA_STAGES = 4;     // (a) ring stages, three loads in flight
-constexpr int MAX_NT = 8;        // n-tiles (8 columns) per warp and pass
-constexpr int NT1 = 4;           // the same for pre2 and dh2, held together
-constexpr int TILE_P = 96, TILE_Q = 128;  // (b) output tile
-constexpr int STAGE_ROWS = 32;   // (b) rows per ring stage
-constexpr int WG_STAGES = 4;     // (b) ring stages, three loads in flight
+// Geometry (kernels/nin_head.py's k3_plan has the same shared bytes). (a):
+// a warpgroup's 64 rows per wgmma; pre2, dh2 and dpre2 in passes of TC_NB
+// columns of Nb, one wgmma each; dx_i in passes of TC_CB columns of C; h1 /
+// dpre1 in TMA boxes of 64 rows x TC_KB columns; one ring of RING_STAGES
+// slots of RING_SLOT bytes carries, per tile, Wb in chunks of TC_KB rows x a
+// pass's columns for pre2, again for dh1 (its chunks of TC_KB columns of Na,
+// a chunk per pass), then the Wa_i in chunks of TC_CB rows x TC_KB columns.
+// (b): items of WG_P rows (two warpgroups) x a product's columns, WG_KR rows
+// of M per stage through a ring of WG_STAGES.
+constexpr int TC_ROWS = 64;
+constexpr int TC_NB = 96;
+constexpr int TC_CB = 96;
+constexpr int TC_KB = 64;
+constexpr int TC_NCW = 64;  // columns of Nc in (a)'s window of Wc^T
+constexpr int TC_BOX = TC_ROWS * TC_KB * 2;   // bytes of an h1 box: 8 KB
+constexpr int WB_BOX = TC_KB * 32 * 2;        // bytes of a Wb box (64 x 32)
+constexpr int RING_STAGES = 10;
+constexpr int RING_SLOT = TC_CB * TC_KB * 2;  // bytes: a Wa_i chunk, 3 Wb boxes
+constexpr int WG_KR = 64;
+constexpr int WG_STAGES = 5;
+constexpr int WG_P = 128;
+constexpr int WG_A = WG_KR * 64 * 2;          // bytes of an A box (64 columns)
+constexpr int WG_BC = 64;                     // columns of a B box (128-byte swizzle)
+constexpr int WG_B = WG_KR * WG_BC * 2;       // bytes of a B box
+constexpr int WG_QMAX = 192;                  // the widest product's columns
+constexpr int WG_SLOT = 2 * WG_A + WG_QMAX / WG_BC * WG_B;  // 40 KB
+constexpr int WG_THREADS = 384;  // (b): 2 warpgroups, a producer warp, 3 summing
 constexpr int SMEM_LIMIT = 232448;
 
-// A warp's pass over nt n-tiles: `chunks` passes of `per` tiles, the 4
-// column groups interleaved, so that each warp gets about nt/4 tiles and
-// holds at most MAXT at once.
-template <int MAXT>
-__device__ __forceinline__ int warp_per(int nt, int& chunks) {
-  chunks = (nt + 4 * MAXT - 1) / (4 * MAXT);
-  return (nt + 4 * chunks - 1) / (4 * chunks);
-}
-
-// (a)'s shared memory, in bf16 elements: offsets and row strides.
-struct TcSmem {
-  int wb, h, u, g, wc, ring;
-  int ldwb, ldh, ldu, ldg, ldwc, ldring;
-  int total;
+// (a)'s shared memory, in bytes from a 1024-byte boundary: the tile's h1 /
+// dpre1 boxes (K block kb of warpgroup w at box kb nwg + w), the ring, a
+// window of Wc^T in 8 x 8 core matrices (a pass's TC_NB rows x up to TC_NCW
+// columns of Ncp: all of Wc^T at the model's widths), bb (Nb rounded up to
+// whole passes), the mbarriers (h1, dpre1, and a full and an empty one per
+// ring slot); `total` adds the 1024 bytes of alignment slack.
+struct TcLayout {
+  int h1, ring, wc, bb, bar, total;
 };
 
-__host__ __device__ inline TcSmem tc_smem(int Cp, int Nap, int Nbp, int Ncp) {
-  TcSmem s;
-  s.ldwb = Nbp + SKEW;       // Wb (Na x Nb), resident
-  s.ldh = Nap + SKEW;        // h1 tile, then dpre1
-  s.ldu = (Nbp > Cp ? Nbp : Cp) + SKEW;  // dpre2 tile, then each dx_i
-  s.ldg = Ncp + SKEW;        // g tile, rounded to bf16
-  s.ldwc = Ncp + SKEW;       // Wc (Nb x Nc), resident
-  s.ldring = WA_CHUNK + SKEW;  // WA_STAGES stages of Wa_i (C x WA_CHUNK)
-  s.wb = 0;
-  s.h = s.wb + Nap * s.ldwb;
-  s.u = s.h + TC_ROWS * s.ldh;
-  s.g = s.u + TC_ROWS * s.ldu;
-  s.wc = s.g + TC_ROWS * s.ldg;
-  s.ring = s.wc + Nbp * s.ldwc;
-  s.total = s.ring + WA_STAGES * Cp * s.ldring;
-  return s;
+__host__ __device__ inline TcLayout tc_layout(int Na, int Nb, int Ncp,
+                                              int nwg) {
+  const int nkb = (Na + TC_KB - 1) / TC_KB;
+  const int nbp = (Nb + TC_NB - 1) / TC_NB * TC_NB;
+  TcLayout L;
+  L.h1 = 0;
+  L.ring = L.h1 + nkb * nwg * TC_BOX;
+  L.wc = L.ring + RING_STAGES * RING_SLOT;
+  L.bb = L.wc + TC_NB * (Ncp < TC_NCW ? Ncp : TC_NCW) * 2;
+  L.bar = L.bb + nbp * 4;
+  L.total = L.bar + (2 + 2 * RING_STAGES) * 8 + 1024;
+  return L;
 }
 
 // ------------------------- bf16 (a): rows on tensor cores -------------------------
 
 struct TcRowArgs {
+  CUtensorMap h1;              // load: (M, Na), boxes 64 x 64, 128-byte swizzle
+  CUtensorMap dpre1;           // store: the workspace's dpre1, as h1
+  CUtensorMap wb;              // load: (Na, Nb), boxes 64 x 32, 64-byte swizzle
+  CUtensorMap wa[MAX_BRANCHES];  // load: (C, Na), boxes 96 x 64, 128-byte
   const bf16* x[MAX_BRANCHES];
-  const bf16* wa[MAX_BRANCHES];  // Wa_i as stored, (C, Na)
-  const bf16* h1;
-  const bf16* wb;
+  bf16* dx[MAX_BRANCHES];
+  const float* g;
   const float* bb;
   const bf16* wc;
-  const float* g;
-  bf16* dx[MAX_BRANCHES];
   bf16* h2ws;     // (M, Nb)
   bf16* dpre2ws;  // (M, Nb)
-  bf16* dpre1ws;  // (M, Na)
   bf16* gws;      // (M, Ncp): g rounded to bf16, zero past Nc
-  int k, M, C, Na, Nb, Nc;  // C, Na, Nb multiples of 8
-  int Cp, Nap, Nbp, Ncp;    // padded to 16
+  int k, M, C, Na, Nb, Nc, Ncp;
   float slope;
 };
 
-// Persistent: each block walks the 64-row tiles blockIdx.x, + gridDim.x, ...
-// Warp w owns rows 32 (w & 1) .. +32 (two m16 tiles) and column group w >> 1.
-__global__ void __launch_bounds__(TC_THREADS, 1)
-bwd_rows_tc_kernel(TcRowArgs a) {
-  extern __shared__ uint4 smem_tc[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_tc);
-  const TcSmem L = tc_smem(a.Cp, a.Nap, a.Nbp, a.Ncp);
-  bf16* sWb = sm + L.wb;
-  bf16* sH = sm + L.h;
-  bf16* sU = sm + L.u;
-  bf16* sG = sm + L.g;
-  bf16* sWc = sm + L.wc;
-  bf16* sRing = sm + L.ring;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr0 = (warp & 1) * 32, cg = warp >> 1;
-  const int lr = lane >> 2, lc = 2 * (lane & 3);  // fragment row / column
-
-  // every pad stays zero: rows and columns past the widths feed zeros to
-  // the products
-  for (int e = tid; e < L.total / 8; e += TC_THREADS)
-    smem_tc[e] = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
-  const int nb8 = a.Nb / 8, na8 = a.Na / 8;
-  for (int e = tid; e < a.Na * nb8; e += TC_THREADS) {
-    const int r = e / nb8, c8 = e - r * nb8;
-    cp_async16(sWb + r * L.ldwb + c8 * 8, a.wb + (size_t)r * a.Nb + c8 * 8);
+// The quad's transpose: lane p of a quad holds v[t], the bf16 pair at
+// columns 8 (j0 + t) + 2p of a row (t < 4, an accumulator's n8 tiles j0..);
+// returns the 16 bytes of columns 8 (j0 + p) .. + 7, so that a row's 64
+// bytes move in one 16-byte access per lane. Two exchanges, with the lanes
+// 2 and then 1 apart. Its own inverse.
+__device__ __forceinline__ uint4 quad_t(const unsigned (&v)[4]) {
+  const int p = threadIdx.x & 3;
+  const bool hi = p & 2, lo = p & 1;
+  // 2 x 2 blocks of 2 x 2: the off-diagonal blocks swap with lane p ^ 2
+  const unsigned a0 = __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2);
+  const unsigned a1 = __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2);
+  // this lane's words of tiles 2 hi, 2 hi + 1 at its columns (u*) and at
+  // lane p ^ 2's (a*); within the blocks, swap with lane p ^ 1
+  const unsigned u0 = hi ? v[2] : v[0], u1 = hi ? v[3] : v[1];
+  const unsigned d0 = __shfl_xor_sync(0xffffffffu, lo ? u0 : u1, 1);
+  const unsigned d1 = __shfl_xor_sync(0xffffffffu, lo ? a0 : a1, 1);
+  const unsigned e0 = lo ? u1 : u0, e1 = lo ? a1 : a0;
+  // word i is column pair i of tile p: own pairs p (e0), p ^ 2 (e1); lane
+  // p ^ 1's pairs p ^ 1 (d0), p ^ 3 (d1)
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool own = (i & 1) == lo, near = ((i >> 1) & 1) == hi;
+    w[i] = own ? (near ? e0 : e1) : (near ? d0 : d1);
   }
-  cp_async_commit();
-  for (int e = tid; e < a.Nb * a.Nc; e += TC_THREADS) {
-    const int r = e / a.Nc;
-    sWc[r * L.ldwc + (e - r * a.Nc)] = a.wc[e];
-  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void quad_t(unsigned (&v)[4], uint4 u) {
+  const unsigned in[4] = {u.x, u.y, u.z, u.w};
+  const uint4 t = quad_t(in);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
 
-  const int kchunks = (a.Nap + WA_CHUNK - 1) / WA_CHUNK;
-  const int steps = a.k * kchunks;
-  // ring stage `stage` <- columns of Wa_i for step s (branch s / kchunks)
-  auto load_wa = [&](int s, int stage) {
-    const int br = s / kchunks;
-    const int k0 = (s - br * kchunks) * WA_CHUNK;
-    bf16* st = sRing + stage * a.Cp * L.ldring;
-    const bf16* wa = a.wa[br];
-    for (int e = tid; e < a.Cp * (WA_CHUNK / 8); e += TC_THREADS) {
-      const int r = e / (WA_CHUNK / 8), c = k0 + (e % (WA_CHUNK / 8)) * 8;
-      bf16* dst = st + r * L.ldring + (c - k0);
-      if (r < a.C && c < a.Na) cp_async16(dst, wa + (size_t)r * a.Na + c);
-      else zero16(dst);
+// Warp-specialised and persistent: block b walks the tiles b, b +
+// gridDim.x, ... The NWG consumer warpgroups compute (warpgroup w: the
+// tile's rows 64 w ..); the last warpgroup copies: its warp 0 keeps the
+// ring full, its warp 1 stores each tile's dpre1 and then loads the next
+// tile's h1 into the same boxes. MAXKB: h1's K blocks at most (Na <= 64
+// MAXKB), the size of dpre1's A fragments, which dx_i reads from registers.
+// WIDE: Wc^T is more than one window (Nb > TC_NB or Ncp > TC_NCW), so pre2,
+// dh2 and dpre2 run in passes over Nb and the window is rewritten; without
+// it, one pass and one window, fixed at compile time.
+template <int MAXKB, int NWG, bool WIDE>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+bwd_rows_tc_kernel(const __grid_constant__ TcRowArgs a) {
+  extern __shared__ unsigned char smem_rows_tc[];
+  unsigned char* sm =
+      smem_rows_tc + ((1024 - (smem_addr(smem_rows_tc) & 1023)) & 1023);
+  const TcLayout L = tc_layout(a.Na, a.Nb, a.Ncp, NWG);
+  unsigned char* sH = sm + L.h1;
+  unsigned char* sRing = sm + L.ring;
+  unsigned char* sWc = sm + L.wc;
+  float* sBb = reinterpret_cast<float*>(sm + L.bb);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.bar);
+  uint64_t* bar_h1 = bar;           // the tile's h1 has landed
+  uint64_t* bar_d1 = bar + 1;       // the tile's dpre1 is in sH (4 NWG warps)
+  uint64_t* full = bar + 2;         // ring slot landed
+  uint64_t* empty = full + RING_STAGES;  // ring slot read (4 NWG warps)
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int M = a.M, C = a.C, Na = a.Na, Nb = a.Nb, Nc = a.Nc;
+  const int Ncp = a.Ncp;
+  const int nkb = (Na + TC_KB - 1) / TC_KB, ncb = (C + TC_CB - 1) / TC_CB;
+  const int npass = WIDE ? (Nb + TC_NB - 1) / TC_NB : 1;
+  const int nbp = npass * TC_NB;
+  constexpr int trows = TC_ROWS * NWG;
+  const int tiles = (M + trows - 1) / trows;
+  const float slope = a.slope;
+
+  // The window of Wc^T: rows TC_NB pass .. and ncw columns from TC_NCW
+  // chunk in core matrices, zero past Nb and Nc, written by threads t0, t0
+  // + step, ... Where Wc^T is one window it is written once, here; else
+  // (WIDE) the consumers rewrite it as dh2 moves on.
+  const int ncw = WIDE ? min(Ncp, TC_NCW) : Ncp;
+  auto fill_wc = [&](int pass, int chunk, int t0, int step) {
+    for (int e = t0; e < TC_NB * ncw; e += step) {
+      const int j = e / ncw, n = e - j * ncw;
+      const int jb = TC_NB * pass + j, nc = TC_NCW * chunk + n;
+      *reinterpret_cast<bf16*>(sWc + ((j >> 3) * (ncw >> 3) + (n >> 3)) * 128 +
+                               (j & 7) * 16 + (n & 7) * 2) =
+          jb < Nb && nc < Nc ? a.wc[jb * Nc + nc] : __float2bfloat16_rn(0.f);
     }
   };
+  if (!WIDE) fill_wc(0, 0, tid, blockDim.x);
+  // bb, and the ring zeroed (Wb's boxes past Nb are never loaded; dpre2's
+  // columns there are zeros, and zeros times what a slot held before stay
+  // zeros)
+  for (int e = tid; e < nbp; e += blockDim.x) sBb[e] = e < Nb ? a.bb[e] : 0.f;
+  for (int e = tid; e < RING_STAGES * RING_SLOT / 16; e += blockDim.x)
+    zero16(sRing + e * 16);
+  fence_async_shared();
+  if (tid == 0) {
+    mbar_init(bar_h1, 1);
+    mbar_init(bar_d1, 4 * NWG);
+    for (int i = 0; i < RING_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * NWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int n_tiles = (a.M + TC_ROWS - 1) / TC_ROWS;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = (long long)tile * TC_ROWS;
-    const int rows = (int)min((long long)TC_ROWS, (long long)a.M - r0);
-    for (int e = tid; e < TC_ROWS * na8; e += TC_THREADS) {
-      const int r = e / na8, c8 = e - r * na8;
-      bf16* dst = sH + r * L.ldh + c8 * 8;
-      if (r < rows) cp_async16(dst, a.h1 + (r0 + r) * a.Na + c8 * 8);
-      else zero16(dst);
-    }
-    cp_async_commit();
-    for (int e = tid; e < TC_ROWS * a.Ncp; e += TC_THREADS) {
-      const int r = e / a.Ncp, c = e - r * a.Ncp;
-      sG[r * L.ldg + c] = __float2bfloat16_rn(
-          r < rows && c < a.Nc ? a.g[(r0 + r) * a.Nc + c] : 0.f);
-    }
-    // the first WA_STAGES - 1 chunks of Wa_0 land during pre2 and dh1
-    for (int s = 0; s < WA_STAGES - 1; ++s) {
-      if (s < steps) load_wa(s, s);
-      cp_async_commit();
-    }
-    cp_async_wait<WA_STAGES - 1>();  // Wb (first tile) and h1 have landed
-    __syncthreads();
-    store_rows(a.gws, a.Ncp, sG, L.ldg, rows, r0);  // g_lp, for (b)'s dWc
-
-    // ---- pre2 = h1 Wb + bb, dh2 = g_lp Wc^T; h2, dpre2 ----
-    {
-      int chunks;
-      const int nt = a.Nbp / 8, per = warp_per<NT1>(nt, chunks);
-      for (int ch = 0; ch < chunks; ++ch) {
-        const int t0 = (ch * 4 + cg) * per;
-        if (t0 >= nt) break;
-        float acc[2][NT1][4] = {}, dh[2][NT1][4] = {};
-        for (int k0 = 0; k0 < a.Nap; k0 += 16) {
-          unsigned af[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldsm_x4(af[mt], sH + (wr0 + mt * 16 + (lane & 15)) * L.ldh + k0 +
-                                (lane >> 4) * 8);
-#pragma unroll
-          for (int j = 0; j < NT1; ++j) {
-            if (j < per && t0 + j < nt) {
-              unsigned b[2];  // Wb rows k0.., columns of n-tile t0 + j
-              ldsm_x2_t(b, sWb + (k0 + (lane & 15)) * L.ldwb + (t0 + j) * 8);
-              mma_bf16(acc[0][j], af[0], b[0], b[1]);
-              mma_bf16(acc[1][j], af[1], b[0], b[1]);
+  if (warp >= 4 * NWG) {  // the copying warpgroup
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (l != 0 || warp > 4 * NWG + 1) return;
+    auto load_h1 = [&](int tile) {
+      mbar_expect(bar_h1, nkb * NWG * TC_BOX);
+      for (int kb = 0; kb < nkb; ++kb)
+        for (int g = 0; g < NWG; ++g)
+          tma_load(sH + (kb * NWG + g) * TC_BOX, &a.h1, bar_h1, TC_KB * kb,
+                   tile * trows + TC_ROWS * g);
+    };
+    if (warp == 4 * NWG) {  // the ring, per tile: Wb twice, then the Wa_i
+      int q = 0;
+      auto slot_for = [&](unsigned bytes) {  // the next slot, once it is free
+        const int slot = q % RING_STAGES, n = q / RING_STAGES;
+        if (n > 0) mbar_wait(&empty[slot], (n - 1) & 1);
+        mbar_expect(&full[slot], bytes);
+        ++q;
+        return slot;
+      };
+      // Wb's rows TC_KB kc .. and pass p's columns (its 32-column boxes)
+      auto load_wb = [&](int p, int kc) {
+        const int njb = min(TC_NB, Nb - TC_NB * p + 31) / 32;
+        const int slot = slot_for(njb * WB_BOX);
+        for (int jb = 0; jb < njb; ++jb)
+          tma_load(sRing + slot * RING_SLOT + jb * WB_BOX, &a.wb, &full[slot],
+                   TC_NB * p + 32 * jb, TC_KB * kc);
+      };
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int p = 0; p < npass; ++p)  // pre2, pass by pass
+          for (int kc = 0; kc < nkb; ++kc) load_wb(p, kc);
+        for (int kc = 0; kc < nkb; ++kc)  // dh1, chunk by chunk
+          for (int p = 0; p < npass; ++p) load_wb(p, kc);
+        for (int br = 0; br < a.k; ++br)
+          for (int cb = 0; cb < ncb; ++cb)
+            for (int kc = 0; kc < nkb; ++kc) {
+              const int slot = slot_for(RING_SLOT);
+              tma_load(sRing + slot * RING_SLOT, &a.wa[(br + blockIdx.x) % a.k],
+                       &full[slot], TC_KB * kc, TC_CB * cb);
             }
+      }
+    } else {  // h1 in, dpre1 out
+      if ((int)blockIdx.x < tiles) load_h1(blockIdx.x);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+        mbar_wait(bar_d1, it & 1);
+        for (int kb = 0; kb < nkb; ++kb)
+          for (int g = 0; g < NWG; ++g)
+            if ((long long)tile * trows + TC_ROWS * g < M)
+              tma_store(&a.dpre1, sH + (kb * NWG + g) * TC_BOX, TC_KB * kb,
+                        tile * trows + TC_ROWS * g);
+        tma_store_commit();
+        tma_store_wait_read();
+        if (tile + (int)gridDim.x < tiles) load_h1(tile + gridDim.x);
+      }
+    }
+    return;
+  }
+  if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+
+  // the consumers: warpgroup wg; this thread's accumulator places: rows rw
+  // and rw + 8 of the warpgroup's 64, columns 8 j + cl and + 1 of each n8
+  // tile j
+  const int wg = warp >> 2, w = warp & 3;
+  const int rw = 16 * w + (l >> 2), cl = 2 * (l & 3), p4 = 8 * (l & 3);
+  // g rounded to bf16 at the A fragment's places, K step s of a tile (the
+  // first step of the next tile loads while this one's dx_i run)
+  auto load_g = [&](unsigned (&gf)[4], int tile, int s) {
+    const long long r0 = (long long)tile * trows + TC_ROWS * wg;
+#pragma unroll
+    for (int qh = 0; qh < 2; ++qh)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r0 + rw + 8 * h;
+        const int n = 16 * s + 8 * qh + cl;
+        const float* gp = a.g + row * Nc + n;
+        const bool in = row < M;
+        gf[2 * qh + h] = pack_bf16(in && n < Nc ? gp[0] : 0.f,
+                                   in && n + 1 < Nc ? gp[1] : 0.f);
+      }
+  };
+  unsigned gnext[4] = {0u, 0u, 0u, 0u};
+  if ((int)blockIdx.x < tiles) load_g(gnext, blockIdx.x, 0);
+
+  unsigned char* myH = sH + wg * TC_BOX;  // + kb NWG TC_BOX: K block kb
+  int q = 0;                              // the next ring slot to read
+  // a slot is released once the wgmma that read it is known complete
+  auto release = [&](int slot_q) {
+    __syncwarp();
+    if (l == 0) mbar_arrive(&empty[slot_q % RING_STAGES]);
+  };
+  auto take = [&]() {  // the next slot, landed
+    const int slot = q % RING_STAGES;
+    mbar_wait(&full[slot], (q / RING_STAGES) & 1);
+    return sRing + slot * RING_SLOT;
+  };
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    const long long r0 = (long long)tile * trows + TC_ROWS * wg;
+    const int next = tile + (int)gridDim.x;
+
+    // ---- per pass of TC_NB columns of Nb: pre2 = h1 Wb (+ bb in the
+    // epilogue), Wb's chunks from the ring; dh2 = g_lp Wc^T ----
+    unsigned dfr[TC_NB / 16][4];
+    mbar_wait(bar_h1, it & 1);
+    for (int pass = 0; pass < npass; ++pass) {
+      const int nb0 = TC_NB * pass;
+      float P[TC_NB / 2], D[TC_NB / 2];
+#pragma unroll
+      for (int i = 0; i < TC_NB / 2; ++i) P[i] = D[i] = 0.f;
+      fence_regs(P);
+      for (int kc = 0; kc < nkb; ++kc, ++q) {
+        const unsigned char* st = take();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TC_KB / 16; ++kk)
+          wgmma_ss_n96<0, 1>(
+              P, gmma_desc(myH + kc * NWG * TC_BOX + kk * 32, 16, 1024, SWZ_128),
+              gmma_desc(st + kk * 1024, WB_BOX, 512, SWZ_64), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kc > 0) release(q - 1);
+      }
+      for (int s = 0; s < Ncp / 16; ++s) {
+        if (WIDE && s % (TC_NCW / 16) == 0) {
+          // every consumer's wgmma on the last window is complete
+          named_sync(1, 128 * NWG);
+          fill_wc(pass, s / (TC_NCW / 16), tid, 128 * NWG);
+          fence_async_shared();
+          named_sync(1, 128 * NWG);
+        }
+        unsigned gf[4];
+        if (s == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gf[i] = gnext[i];
+        } else {
+          load_g(gf, tile, s);
+        }
+        if (pass == 0) {
+#pragma unroll
+          for (int qh = 0; qh < 2; ++qh)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {  // g_lp for (b)'s dWc
+              const long long row = r0 + rw + 8 * h;
+              if (row < M)
+                *reinterpret_cast<unsigned*>(a.gws + row * Ncp + 16 * s +
+                                             8 * qh + cl) = gf[2 * qh + h];
+            }
+        }
+        fence_regs(gf);
+        fence_regs(D);
+        wgmma_fence();
+        wgmma_rs_n96<0>(D, gf,
+                        gmma_desc(sWc + s % (TC_NCW / 16) * 256, 128,
+                                  ncw / 8 * 128, SWZ_NONE), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(D);
+      }
+      release(q - 1);  // pre2's last chunk
+      fence_regs(P);
+
+      // ---- h2 = lrelu(pre2), dpre2 = mask(pre2) dh2: stored, and kept as
+      // the A fragments of dh1 (n8 tiles 2i, 2i + 1 are k16 step i) ----
+#pragma unroll
+      for (int j0 = 0; j0 < TC_NB / 8; j0 += 4) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned hw[4], dw[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int j = j0 + t, c = nb0 + 8 * j + cl;
+            const float p0 = P[4 * j + 2 * h] + sBb[c];
+            const float p1 = P[4 * j + 2 * h + 1] + sBb[c + 1];
+            const float d0 = D[4 * j + 2 * h], d1 = D[4 * j + 2 * h + 1];
+            dw[t] = pack_bf16(p0 >= 0.f ? d0 : slope * d0,
+                              p1 >= 0.f ? d1 : slope * d1);
+            hw[t] = pack_bf16(lrelu(p0, slope), lrelu(p1, slope));
+            dfr[j >> 1][2 * (j & 1) + h] = dw[t];
+          }
+          const uint4 hq = quad_t(hw), dq = quad_t(dw);
+          const long long row = r0 + rw + 8 * h;
+          const int c = nb0 + 8 * j0 + p4;
+          if (row < M && c < Nb) {
+            *reinterpret_cast<uint4*>(a.h2ws + row * Nb + c) = hq;
+            *reinterpret_cast<uint4*>(a.dpre2ws + row * Nb + c) = dq;
           }
         }
-        for (int k0 = 0; k0 < a.Ncp; k0 += 16) {
-          unsigned af[2][4];
+      }
+    }
+
+    // ---- dh1 = dpre2 Wb^T per chunk of TC_KB columns of Na, K over Nb
+    // pass by pass (Wb's rows from the ring); dpre1 = mask(h1) dh1, kept as
+    // dx_i's A fragments (K steps 4 c ..) and written over h1. WIDE: a
+    // pass's dpre2 fragments come back from this thread's own stores above
+    // (zero where it stored none), through the same transpose ----
+    unsigned d1f[4 * MAXKB][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldsm_x4(af[mt], sG + (wr0 + mt * 16 + (lane & 15)) * L.ldg + k0 +
-                                (lane >> 4) * 8);
+    for (int c = 0; c < MAXKB; ++c) {
+      if (c >= nkb) break;
+      float H[TC_KB / 2];
 #pragma unroll
-          for (int j = 0; j < NT1; ++j) {
-            if (j < per && t0 + j < nt) {
-              unsigned b[2];  // Wc rows of n-tile t0 + j, columns k0..
-              ldsm_x2(b, sWc + ((t0 + j) * 8 + (lane & 7)) * L.ldwc + k0 +
-                             ((lane >> 3) & 1) * 8);
-              mma_bf16(dh[0][j], af[0], b[0], b[1]);
-              mma_bf16(dh[1][j], af[1], b[0], b[1]);
-            }
-          }
-        }
+      for (int i = 0; i < TC_KB / 2; ++i) H[i] = 0.f;
+      fence_regs(H);
+      for (int pass = 0; pass < npass; ++pass) {
+        if (WIDE) {
 #pragma unroll
-        for (int j = 0; j < NT1; ++j) {
-          if (!(j < per && t0 + j < nt)) continue;
-          const int c = (t0 + j) * 8 + lc;
-          const float b0 = c < a.Nb ? a.bb[c] : 0.f;
-          const float b1 = c < a.Nb ? a.bb[c + 1] : 0.f;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int j0 = 0; j0 < TC_NB / 8; j0 += 4)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int r = wr0 + mt * 16 + lr + 8 * h;
-              const float p0 = acc[mt][j][2 * h] + b0;
-              const float p1 = acc[mt][j][2 * h + 1] + b1;
-              const float d0 = dh[mt][j][2 * h], d1 = dh[mt][j][2 * h + 1];
-              const unsigned dp = pack_bf16(p0 >= 0.f ? d0 : a.slope * d0,
-                                            p1 >= 0.f ? d1 : a.slope * d1);
-              *reinterpret_cast<unsigned*>(sU + r * L.ldu + c) = dp;
-              if (r < rows && c < a.Nb)
-                *reinterpret_cast<unsigned*>(
-                    a.h2ws + (size_t)(r0 + r) * a.Nb + c) =
-                    pack_bf16(lrelu(p0, a.slope), lrelu(p1, a.slope));
+              const long long row = r0 + rw + 8 * h;
+              const int cb = TC_NB * pass + 8 * j0 + p4;
+              unsigned dw[4];
+              quad_t(dw, row < M && cb < Nb
+                             ? *reinterpret_cast<const uint4*>(
+                                   a.dpre2ws + row * Nb + cb)
+                             : make_uint4(0u, 0u, 0u, 0u));
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                dfr[(j0 + t) >> 1][2 * ((j0 + t) & 1) + h] = dw[t];
             }
-          }
         }
+        const unsigned char* st = take();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TC_NB / 16; ++kk)
+          wgmma_rs_n64<0>(H, dfr[kk],
+                          gmma_desc(st + (kk >> 1) * WB_BOX + (kk & 1) * 32,
+                                    16, 512, SWZ_64), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(H);
+        release(q++);
       }
+      unsigned char* box = myH + c * NWG * TC_BOX;
+#pragma unroll
+      for (int j = 0; j < TC_KB / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float d0 = H[4 * j + 2 * h], d1 = H[4 * j + 2 * h + 1];
+          unsigned* hp = reinterpret_cast<unsigned*>(
+              box + swz<128>(rw + 8 * h, 2 * (8 * j + cl)));
+          const float2 hv = unpack_bf16(*hp);
+          const unsigned v = pack_bf16(hv.x >= 0.f ? d0 : slope * d0,
+                                       hv.y >= 0.f ? d1 : slope * d1);
+          *hp = v;
+          d1f[4 * c + (j >> 1)][2 * (j & 1) + h] = v;
+        }
     }
-    __syncthreads();
-    store_rows(a.dpre2ws, a.Nb, sU, L.ldu, rows, r0);
+    fence_async_shared();  // dpre1 -> the TMA store
+    __syncwarp();
+    if (l == 0) mbar_arrive(bar_d1);
+    if (next < tiles) load_g(gnext, next, 0);
 
-    // ---- dh1 = dpre2 Wb^T; dpre1 over h1's tile ----
-    {
-      int chunks;
-      const int nt = a.Nap / 8, per = warp_per<MAX_NT>(nt, chunks);
-      for (int ch = 0; ch < chunks; ++ch) {
-        const int t0 = (ch * 4 + cg) * per;
-        if (t0 >= nt) break;
-        float acc[2][MAX_NT][4] = {};
-        for (int k0 = 0; k0 < a.Nbp; k0 += 16) {
-          unsigned af[2][4];
+    // ---- dx_i = mask(x_i) (dpre1 Wa_i^T), per pass of TC_CB columns ----
+    for (int br = 0; br < a.k; ++br) {
+      // the branches in an order rotated by the block, so that the blocks
+      // read four different Wa_i chunks from L2 at a time, not one
+      const bf16* x = a.x[(br + blockIdx.x) % a.k];
+      bf16* dx = a.dx[(br + blockIdx.x) % a.k];
+      for (int cb = 0; cb < ncb; ++cb) {
+        // x_i's 16-byte pieces, transposed in the quad at the epilogue
+        uint4 xr[TC_CB / 32][2];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldsm_x4(af[mt], sU + (wr0 + mt * 16 + (lane & 15)) * L.ldu + k0 +
-                                (lane >> 4) * 8);
+        for (int g4 = 0; g4 < TC_CB / 32; ++g4)
 #pragma unroll
-          for (int j = 0; j < MAX_NT; ++j) {
-            if (j < per && t0 + j < nt) {
-              unsigned b[2];  // Wb rows of n-tile t0 + j, columns k0..
-              ldsm_x2(b, sWb + ((t0 + j) * 8 + (lane & 7)) * L.ldwb + k0 +
-                             ((lane >> 3) & 1) * 8);
-              mma_bf16(acc[0][j], af[0], b[0], b[1]);
-              mma_bf16(acc[1][j], af[1], b[0], b[1]);
-            }
+          for (int h = 0; h < 2; ++h) {
+            const long long row = r0 + rw + 8 * h;
+            const int c = TC_CB * cb + 32 * g4 + p4;
+            xr[g4][h] = row < M && c < C
+                            ? *reinterpret_cast<const uint4*>(x + row * C + c)
+                            : make_uint4(0u, 0u, 0u, 0u);
           }
+        float X[TC_CB / 2];
+#pragma unroll
+        for (int i = 0; i < TC_CB / 2; ++i) X[i] = 0.f;
+        fence_regs(X);
+#pragma unroll
+        for (int kc = 0; kc < MAXKB; ++kc) {
+          if (kc >= nkb) break;
+          const unsigned char* st = take();
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < TC_KB / 16; ++kk)
+            wgmma_rs_n96<0>(X, d1f[4 * kc + kk],
+                            gmma_desc(st + kk * 32, 16, 1024, SWZ_128), 1);
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (kc > 0) release(q - 1);
+          ++q;
         }
+        wgmma_wait<0>();
+        fence_regs(X);
+        release(q - 1);
 #pragma unroll
-        for (int j = 0; j < MAX_NT; ++j) {
-          if (!(j < per && t0 + j < nt)) continue;
-          const int c = (t0 + j) * 8 + lc;
+        for (int g4 = 0; g4 < TC_CB / 32; ++g4)
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int h = 0; h < 2; ++h) {
+            unsigned xv[4], v[4];
+            quad_t(xv, xr[g4][h]);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = wr0 + mt * 16 + lr + 8 * h;
-              unsigned* hp = reinterpret_cast<unsigned*>(sH + r * L.ldh + c);
-              const float2 hv = unpack_bf16(*hp);
-              const float d0 = acc[mt][j][2 * h], d1 = acc[mt][j][2 * h + 1];
-              const unsigned dp = pack_bf16(hv.x >= 0.f ? d0 : a.slope * d0,
-                                            hv.y >= 0.f ? d1 : a.slope * d1);
-              *hp = dp;  // this warp alone reads or writes these elements
+            for (int t = 0; t < 4; ++t) {
+              const int j = 4 * g4 + t;
+              const float2 xf = unpack_bf16(xv[t]);
+              const float d0 = X[4 * j + 2 * h], d1 = X[4 * j + 2 * h + 1];
+              v[t] = pack_bf16(xf.x >= 0.f ? d0 : slope * d0,
+                               xf.y >= 0.f ? d1 : slope * d1);
             }
+            const uint4 u = quad_t(v);
+            const long long row = r0 + rw + 8 * h;
+            const int c = TC_CB * cb + 32 * g4 + p4;
+            if (row < M && c < C)
+              *reinterpret_cast<uint4*>(dx + row * C + c) = u;
           }
-        }
       }
-    }
-    __syncthreads();
-    store_rows(a.dpre1ws, a.Na, sH, L.ldh, rows, r0);
-
-    // ---- dx_i = mask(x_i) * (dpre1 Wa_i^T), Wa_i streamed ----
-    {
-      int chunks;
-      const int nt = a.Cp / 8, per = warp_per<MAX_NT>(nt, chunks);  // chunks == 1
-      const int t0 = cg * per;
-      float acc[2][MAX_NT][4];
-      unsigned xv[2][MAX_NT][2];  // x_i at the fragment's places
-      for (int s = 0; s < steps; ++s) {
-        const int br = s / kchunks, kc = s - br * kchunks;
-        if (kc == 0) {
-#pragma unroll
-          for (int j = 0; j < MAX_NT; ++j)
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                acc[mt][j][2 * h] = acc[mt][j][2 * h + 1] = 0.f;
-                const int r = wr0 + mt * 16 + lr + 8 * h;
-                const int c = (t0 + j) * 8 + lc;
-                xv[mt][j][h] =
-                    (j < per && c < a.C && r < rows)
-                        ? *reinterpret_cast<const unsigned*>(
-                              a.x[br] + (size_t)(r0 + r) * a.C + c)
-                        : 0u;
-              }
-        }
-        cp_async_wait<WA_STAGES - 2>();  // step s's chunk has landed
-        __syncthreads();
-        // the stage read at step s - 1 takes step s + WA_STAGES - 1
-        if (s + WA_STAGES - 1 < steps)
-          load_wa(s + WA_STAGES - 1, (s + WA_STAGES - 1) % WA_STAGES);
-        cp_async_commit();
-        const bf16* st = sRing + (s % WA_STAGES) * a.Cp * L.ldring;
-        const int k0 = kc * WA_CHUNK;
-        const int kend = min(WA_CHUNK, a.Nap - k0);
-        for (int kk = 0; kk < kend; kk += 16) {
-          unsigned af[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldsm_x4(af[mt], sH + (wr0 + mt * 16 + (lane & 15)) * L.ldh + k0 +
-                                kk + (lane >> 4) * 8);
-#pragma unroll
-          for (int j = 0; j < MAX_NT; ++j) {
-            if (j < per && t0 + j < nt) {
-              unsigned b[2];  // Wa_i rows of n-tile t0 + j, columns kk..
-              ldsm_x2(b, st + ((t0 + j) * 8 + (lane & 7)) * L.ldring + kk +
-                             ((lane >> 3) & 1) * 8);
-              mma_bf16(acc[0][j], af[0], b[0], b[1]);
-              mma_bf16(acc[1][j], af[1], b[0], b[1]);
-            }
-          }
-        }
-        if (kc == kchunks - 1) {
-#pragma unroll
-          for (int j = 0; j < MAX_NT; ++j) {
-            const int c = (t0 + j) * 8 + lc;
-            if (!(j < per && c < a.C)) continue;
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = wr0 + mt * 16 + lr + 8 * h;
-                const float2 x = unpack_bf16(xv[mt][j][h]);
-                const float d0 = acc[mt][j][2 * h], d1 = acc[mt][j][2 * h + 1];
-                *reinterpret_cast<unsigned*>(sU + r * L.ldu + c) =
-                    pack_bf16(x.x >= 0.f ? d0 : a.slope * d0,
-                              x.y >= 0.f ? d1 : a.slope * d1);
-              }
-          }
-          __syncthreads();  // dx_i's tile is whole in sU
-          store_rows(a.dx[br], a.C, sU, L.ldu, rows, r0);
-        }
-      }
-      __syncthreads();  // the ring and h1's tile are refilled next tile
     }
   }
 }
 
 // -------------------- bf16 (b): weight-grad partials on tensor cores --------------------
 
-// One product out[p, q] = sum_m A[m, p] B[m, q] over the M rows, A and B
-// bf16 with row strides lda, ldb (multiples of 8); p < P and q < Q are
-// stored. Or (colsum_f32) the column sums of the fp32 B (g, for dbc).
-enum { BIAS_NONE = 0, BIAS_OF_B = 1, BIAS_OF_A = 2 };
-
-struct TcJob {
-  const bf16* a;
-  const void* b;
-  int lda, ldb, P, Q;
-  int a_lrelu;     // A is lrelu(x), rounded to bf16 (the branch inputs)
-  int bias;        // column sums to bias_out: of B (blocks of p-tile 0) or
-                   // of A (blocks of q-tile 0)
-  int transpose;   // store out[q, p] (dWb computed as dWb^T)
-  int colsum_f32;  // no product: bias_out <- column sums of the fp32 B
-  long long out, bias_out;  // offsets in the flat output
-  int tiles_q, tile0;
-};
-
+// Work items. Per split, E items of one shape (two warpgroups' 128 rows x
+// 192 columns): the k products dWa_i = lrelu(x_i)^T dpre1 (row tiles of C,
+// column tiles of Na) and dWb^T = dpre2^T h1 (row tiles of Nb, column tiles
+// of Na); and the small ones: dWc = h2^T g_lp (row tiles of Nb, column tiles
+// of 32 of Ncp) and dbc, the fp32 g's column sums. dba (dpre1's column
+// sums: B's) rides on the items of dWa_0's row tile 0, dbb (dpre2's: A's)
+// on dWb^T's items of column tile 0.
 struct TcGradArgs {
-  TcJob job[MAX_JOBS];
-  int n_jobs;
-  int M;
-  long long chunk;  // rows per split (blockIdx.y)
-  long long total;  // elements of the flat output
-  float* partial;   // [S][total]
+  CUtensorMap x[MAX_BRANCHES];  // A: (M, C), boxes 64 x 64, 128-byte swizzle
+  CUtensorMap dpre2, h2;        // A: (M, Nb), as x
+  CUtensorMap dpre1, h1, glp;   // B: (M, Na), (M, Na), g_lp (M, Ncp), as x
+  const float* gf;              // the fp32 g, (M, Nc)
+  float* partial;               // [S][total]
+  int k, M, C, Na, Nb, Nc, Ncp, S;
+  int ge;                       // blocks that take the E items (the others,
+                                // if any, take the small ones)
+  long long chunk;              // rows per split: a multiple of WG_KR
+  long long total;
+  long long dba, dwb, dbb, dwc, dbc;  // offsets in the flat output
   float slope;
 };
 
-constexpr int WG_LDA = TILE_P + SKEW, WG_LDB = TILE_Q + SKEW;
-constexpr int WG_STAGE = STAGE_ROWS * (WG_LDA + WG_LDB);  // bf16 per stage
-constexpr unsigned BF16_ONES = 0x3F803F80u;  // two bf16 1.0
+enum { JOB_DWA = 0, JOB_DWB = 1, JOB_DWC = 2, JOB_DBC = 3 };
 
-// The column sums of the fp32 B over this split's rows: 16 row lanes x 16
-// columns, the lanes' sums added in lane order.
-__device__ void colsum_f32(const TcJob& j, long long m_begin, long long m_end,
-                           float* out) {
+struct TcItem {
+  int job, br, pt, qt, split;
+  int P, Q, QT;      // the product's rows and columns, the item's columns
+  long long m0;      // the split's first row
+  int nst;           // stages (WG_KR rows each)
+  int bias;          // column sums riding on the item: 0, 1 of B, 2 of A
+};
+
+// E items per split, and the small ones
+__host__ __device__ __forceinline__ int tc_e(const TcGradArgs& g) {
+  const int qa = (g.Na + WG_QMAX - 1) / WG_QMAX;
+  return (g.k * ((g.C + WG_P - 1) / WG_P) + (g.Nb + WG_P - 1) / WG_P) * qa;
+}
+__host__ __device__ __forceinline__ int tc_small(const TcGradArgs& g) {
+  return (g.Ncp + 31) / 32 * ((g.Nb + WG_P - 1) / WG_P) + 1;
+}
+
+// item i of the E items (small: false) or of the small ones
+__device__ __forceinline__ TcItem tc_item(const TcGradArgs& g, int i,
+                                          bool small) {
+  const int qa = (g.Na + WG_QMAX - 1) / WG_QMAX, pa = (g.C + WG_P - 1) / WG_P;
+  const int per = small ? tc_small(g) : tc_e(g);
+  TcItem it;
+  it.split = i / per;
+  int t = i - it.split * per;
+  it.br = it.pt = it.qt = it.bias = 0;
+  if (!small && t < g.k * pa * qa) {
+    it.job = JOB_DWA;
+    it.br = t / (pa * qa);
+    t -= it.br * pa * qa;
+    it.pt = t / qa;
+    it.qt = t - it.pt * qa;
+    it.P = g.C; it.Q = g.Na; it.QT = WG_QMAX;
+    it.bias = it.br == 0 && it.pt == 0 ? 1 : 0;
+  } else if (!small) {
+    t -= g.k * pa * qa;
+    it.job = JOB_DWB;
+    it.pt = t / qa;
+    it.qt = t - it.pt * qa;
+    it.P = g.Nb; it.Q = g.Na; it.QT = WG_QMAX;
+    it.bias = it.qt == 0 ? 2 : 0;
+  } else if (t < per - 1) {
+    const int qc = (g.Ncp + 31) / 32;
+    it.job = JOB_DWC;
+    it.pt = t / qc;
+    it.qt = t - it.pt * qc;
+    it.P = g.Nb; it.Q = g.Nc; it.QT = 32;
+  } else {
+    it.job = JOB_DBC;
+    it.P = 0; it.Q = g.Nc; it.QT = 0;
+  }
+  it.m0 = it.split * g.chunk;
+  const long long m1 = min((long long)g.M, it.m0 + g.chunk);
+  it.nst = it.job == JOB_DBC || m1 <= it.m0
+               ? 0 : (int)((m1 - it.m0 + WG_KR - 1) / WG_KR);
+  return it;
+}
+
+// A block's items, in order: blocks b < g.ge take the E items b, b + g.ge,
+// ... (E divides g.ge where a block is left over, so that a block keeps one
+// place in every split and the items of a split run side by side, in step,
+// reading their shared rows of A and B from L2 together); then every block
+// takes the small items b, b + gridDim.x, ...
+struct TcWalk {
+  int i, small, n_e, n_s;
+  __device__ TcWalk(const TcGradArgs& g) {
+    n_e = tc_e(g) * g.S;
+    n_s = tc_small(g) * g.S;
+    small = (int)blockIdx.x >= g.ge;
+    i = blockIdx.x;
+    settle();
+  }
+  __device__ void settle() {
+    if (!small && i >= n_e) {
+      small = 1;
+      i = blockIdx.x;
+    }
+  }
+  __device__ bool valid() const { return small ? i < n_s : i < n_e; }
+  __device__ void next(const TcGradArgs& g) {
+    i += small ? (int)gridDim.x : g.ge;
+    settle();
+  }
+};
+
+// The column sums of the fp32 g over rows [m0, m1), by the 256 consumer
+// threads: 16 row lanes x 16 columns, the lanes' sums added in lane order.
+__device__ void colsum_g(const TcGradArgs& g, long long m0, long long m1,
+                         float* out) {
   __shared__ float red[16][16];
   const int tid = threadIdx.x, rl = tid >> 4, cq = tid & 15;
-  const float* b = static_cast<const float*>(j.b);
-  for (int q0 = 0; q0 < j.Q; q0 += 16) {
+  for (int q0 = 0; q0 < g.Nc; q0 += 16) {
     const int q = q0 + cq;
     float s = 0.f;
-    if (q < j.Q) {
+    if (q < g.Nc) {
 #pragma unroll 8
-      for (long long m = m_begin + rl; m < m_end; m += 16) s += b[m * j.Q + q];
+      for (long long m = m0 + rl; m < m1; m += 16) s += g.gf[m * g.Nc + q];
     }
     red[rl][cq] = s;
-    __syncthreads();
-    if (tid < 16 && q0 + tid < j.Q) {
+    named_sync(1, 2 * 128);
+    if (tid < 16 && q0 + tid < g.Nc) {
       float t = 0.f;
       for (int r = 0; r < 16; ++r) t += red[r][tid];
-      out[j.bias_out + q0 + tid] = t;
+      out[q0 + tid] = t;
     }
-    __syncthreads();
+    named_sync(1, 2 * 128);
   }
 }
 
-// 8 warps: warp w computes rows 48 (w & 1) .. +48 (three m16 tiles) and
-// columns 32 (w >> 1) .. +32 (four n8 tiles) of the 96 x 128 tile, from a
-// WG_STAGES-deep cp.async ring of 32-row stages.
-__global__ void __launch_bounds__(TC_THREADS, 2)
-wgrad_tc_kernel(TcGradArgs g) {
-  extern __shared__ uint4 smem_wg[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_wg);
-  int ji = 0;
-  while (ji + 1 < g.n_jobs && (int)blockIdx.x >= g.job[ji + 1].tile0) ++ji;
-  const TcJob& j = g.job[ji];
-  const long long m_begin = (long long)blockIdx.y * g.chunk;
-  const long long m_end = min((long long)g.M, m_begin + g.chunk);
-  float* out = g.partial + blockIdx.y * g.total;
-  if (j.colsum_f32) {
-    colsum_f32(j, m_begin, m_end, out);
+// Warp-specialised and persistent: each block walks its items (TcWalk).
+// Warpgroups 0 and 1 compute an item's rows 64 w .. (A box w) against all
+// its columns; warp 8's lane 0 keeps the ring full (TMA); warps 9-11 take
+// the column sums that ride on the item. A stage is free once the 8
+// consumer warps and the 3 summing warps have arrived on its `empty`
+// barrier.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_tc_kernel(const __grid_constant__ TcGradArgs g) {
+  extern __shared__ unsigned char smem_wgrad_tc[];
+  unsigned char* sm =
+      smem_wgrad_tc + ((1024 - (smem_addr(smem_wgrad_tc) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + WG_STAGES * WG_SLOT);
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+
+  if (tid == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8 + 3);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer
+    if (l != 0) return;
+    long long q = 0;
+    for (TcWalk wk(g); wk.valid(); wk.next(g)) {
+      const TcItem it = tc_item(g, wk.i, wk.small);
+      const CUtensorMap* ma = it.job == JOB_DWA ? &g.x[it.br]
+                              : it.job == JOB_DWB ? &g.dpre2 : &g.h2;
+      const CUtensorMap* mb = it.job == JOB_DWA ? &g.dpre1
+                              : it.job == JOB_DWB ? &g.h1 : &g.glp;
+      const int qend = it.job == JOB_DWC ? g.Ncp : it.Q;
+      unsigned bytes = 0;
+      for (int b = 0; b < 2; ++b)
+        if (it.pt * WG_P + 64 * b < it.P) bytes += WG_A;
+      for (int b = 0; b * WG_BC < it.QT; ++b)
+        if (it.qt * it.QT + WG_BC * b < qend) bytes += WG_B;
+      for (int s = 0; s < it.nst; ++s, ++q) {
+        const int slot = (int)(q % WG_STAGES);
+        const long long n = q / WG_STAGES;
+        if (n > 0) mbar_wait(&empty[slot], (unsigned)((n - 1) & 1));
+        unsigned char* st = sm + slot * WG_SLOT;
+        const int m = (int)(it.m0 + (long long)s * WG_KR);
+        mbar_expect(&full[slot], bytes);
+        for (int b = 0; b < 2; ++b)
+          if (it.pt * WG_P + 64 * b < it.P)
+            tma_load(st + b * WG_A, ma, &full[slot], it.pt * WG_P + 64 * b, m);
+        for (int b = 0; b * WG_BC < it.QT; ++b)
+          if (it.qt * it.QT + WG_BC * b < qend)
+            tma_load(st + 2 * WG_A + b * WG_B, mb, &full[slot],
+                     it.qt * it.QT + WG_BC * b, m);
+      }
+    }
     return;
   }
-  const int t = blockIdx.x - j.tile0;
-  const int pt = t / j.tiles_q, qt = t % j.tiles_q;
-  const int p0 = pt * TILE_P, q0 = qt * TILE_Q;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wp = (warp & 1) * 48, wq = (warp >> 1) * 32;
-  const bf16* bsrc = static_cast<const bf16*>(j.b);
 
-  // rows mb.. of the A and B tiles into stage st (zero past m_end and
-  // past the operands' widths)
-  auto load = [&](long long mb, int st) {
-    bf16* sa = ring + st * WG_STAGE;
-    bf16* sb = sa + STAGE_ROWS * WG_LDA;
-    for (int e = tid; e < STAGE_ROWS * (TILE_P / 8); e += TC_THREADS) {
-      const int r = e / (TILE_P / 8), p = (e % (TILE_P / 8)) * 8;
-      bf16* dst = sa + r * WG_LDA + p;
-      if (mb + r < m_end && p0 + p < j.lda)
-        cp_async16(dst, j.a + (mb + r) * j.lda + p0 + p);
-      else
-        zero16(dst);
-    }
-    for (int e = tid; e < STAGE_ROWS * (TILE_Q / 8); e += TC_THREADS) {
-      const int r = e / (TILE_Q / 8), q = (e % (TILE_Q / 8)) * 8;
-      bf16* dst = sb + r * WG_LDB + q;
-      if (mb + r < m_end && q0 + q < j.ldb)
-        cp_async16(dst, bsrc + (mb + r) * j.ldb + q0 + q);
-      else
-        zero16(dst);
-    }
-  };
-
-  // column sums ride on the tensor cores: ones^T B (warps of the first p
-  // half) or A^T ones (warps of the first q quarter)
-  const bool bias_b = j.bias == BIAS_OF_B && pt == 0 && wp == 0;
-  const bool bias_a = j.bias == BIAS_OF_A && qt == 0 && wq == 0;
-  const unsigned ones[4] = {BF16_ONES, BF16_ONES, BF16_ONES, BF16_ONES};
-  float acc[3][4][4] = {}, bacc[4][4] = {};
-  const int n_st = (int)((m_end - m_begin + STAGE_ROWS - 1) / STAGE_ROWS);
-  for (int s = 0; s < WG_STAGES - 1; ++s) {
-    if (s < n_st) load(m_begin + (long long)s * STAGE_ROWS, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < n_st; ++it) {
-    cp_async_wait<WG_STAGES - 2>();  // stage it has landed
-    __syncthreads();
-    // the stage read at it - 1 takes stage it + WG_STAGES - 1
-    const int nx = it + WG_STAGES - 1;
-    if (nx < n_st) load(m_begin + (long long)nx * STAGE_ROWS, nx % WG_STAGES);
-    cp_async_commit();
-    const bf16* sa = ring + (it % WG_STAGES) * WG_STAGE;
-    const bf16* sb = sa + STAGE_ROWS * WG_LDA;
+  if (warp > 8) {  // column sums: columns 2c, 2c + 1 of the item's B (dba)
+                   // or A (dbb: its row tile's), each in four partial sums
+                   // (rows r % 4) added in order
+    const int c = tid - 9 * 32, col = 2 * c;
+    long long q = 0;
+    for (TcWalk wk(g); wk.valid(); wk.next(g)) {
+      const TcItem it = tc_item(g, wk.i, wk.small);
+      float sum[2][4] = {};
+      const int q0 = it.bias == 1 ? it.qt * it.QT : it.pt * WG_P;
+      const bool on = it.bias == 1   ? col < it.QT && q0 + col < it.Q
+                      : it.bias == 2 ? col < WG_P && q0 + col < it.P
+                                     : false;
+      for (int s = 0; s < it.nst; ++s, ++q) {
+        const int slot = (int)(q % WG_STAGES);
+        mbar_wait(&full[slot], (unsigned)((q / WG_STAGES) & 1));
+        if (on) {
+          const unsigned char* st = sm + slot * WG_SLOT;
+#pragma unroll 4
+          for (int r = 0; r < WG_KR; r += 4)
 #pragma unroll
-    for (int kk = 0; kk < STAGE_ROWS; kk += 16) {
-      unsigned af[3][4], bf[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 3; ++mt) {
-        if (p0 + wp + mt * 16 >= j.P) continue;
-        ldsm_x4_t(af[mt], sa + (kk + (lane & 7) + ((lane >> 4) & 1) * 8) * WG_LDA +
-                              wp + mt * 16 + ((lane >> 3) & 1) * 8);
-        if (j.a_lrelu) {
-          const float sl = g.slope;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float2 f = unpack_bf16(af[mt][i]);
-            af[mt][i] = pack_bf16(lrelu(f.x, sl), lrelu(f.y, sl));
-          }
+            for (int i = 0; i < 4; ++i) {
+              const unsigned off =
+                  it.bias == 1
+                      ? 2 * WG_A + col / WG_BC * WG_B +
+                            swz<128>(r + i, 2 * (col % WG_BC))
+                      : (col >> 6) * WG_A + swz<128>(r + i, 2 * (col & 63));
+              const float2 v =
+                  unpack_bf16(*reinterpret_cast<const unsigned*>(st + off));
+              sum[0][i] += v.x;
+              sum[1][i] += v.y;
+            }
         }
-        if (bias_a) mma_bf16(bacc[mt], af[mt], ones[0], ones[1]);
+        __syncwarp();
+        if (l == 0) mbar_arrive(&empty[slot]);
       }
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        if (q0 + wq + np * 16 < j.Q)
-          ldsm_x4_t(bf[np], sb + (kk + (lane & 15)) * WG_LDB + wq + np * 16 +
-                                (lane >> 4) * 8);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (q0 + wq + nt * 8 >= j.Q) continue;
-        const unsigned* b = bf[nt >> 1] + 2 * (nt & 1);
-        if (bias_b) mma_bf16(bacc[nt], ones, b[0], b[1]);
-#pragma unroll
-        for (int mt = 0; mt < 3; ++mt)
-          if (p0 + wp + mt * 16 < j.P) mma_bf16(acc[mt][nt], af[mt], b[0], b[1]);
+      if (on) {
+        float* out = g.partial + it.split * g.total +
+                     (it.bias == 1 ? g.dba : g.dbb) + q0 + col;
+        out[0] = ((sum[0][0] + sum[0][1]) + sum[0][2]) + sum[0][3];
+        out[1] = ((sum[1][0] + sum[1][1]) + sum[1][2]) + sum[1][3];
       }
     }
+    return;
   }
 
+  // the consumers: warpgroup wg, warp w of it
+  const int wg = warp >> 2, w = warp & 3;
+  long long q = 0;  // stages consumed
+  for (TcWalk wk(g); wk.valid(); wk.next(g)) {
+    const TcItem it = tc_item(g, wk.i, wk.small);
+    float* out = g.partial + it.split * g.total;
+    if (it.job == JOB_DBC) {
+      colsum_g(g, it.m0, min((long long)g.M, it.m0 + g.chunk), out + g.dbc);
+      continue;
+    }
+    const int p_base = it.pt * WG_P + 64 * wg;
+    const bool on = p_base < it.P;  // this warpgroup's rows exist
+
+    auto run = [&](auto nq) {
+      constexpr int N = decltype(nq)::value;
+      float acc[N / 2];
 #pragma unroll
-  for (int mt = 0; mt < 3; ++mt)
+      for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      // E items: A^T's fragments by ldmatrix.trans from the [m][p] box
+      // (lrelu'd for dWa), two stages' worth
+      unsigned af[2][WG_KR / 16][4];
+      long long pending = -1;  // the stage whose slot is released next
+      auto stage = [&](auto bufc) {
+        constexpr int buf = decltype(bufc)::value;
+        const int slot = (int)(q % WG_STAGES);
+        const unsigned char* st = sm + slot * WG_SLOT;
+        mbar_wait(&full[slot], (unsigned)((q / WG_STAGES) & 1));
+        if (on) {
+          if constexpr (N == WG_QMAX) {
+            const unsigned char* box = st + wg * WG_A;
+            const int mi = (l & 7) + ((l >> 4) & 1) * 8;
+            const int pc = 16 * w + ((l >> 3) & 1) * 8;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+            for (int kk = 0; kk < WG_KR / 16; ++kk) {
+              ldsm_x4_t(af[buf][kk], reinterpret_cast<const bf16*>(
+                                         box + swz<128>(16 * kk + mi, 2 * pc)));
+              if (it.job == JOB_DWA) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + wp + mt * 16 + (lane >> 2) + 8 * (i >> 1);
-        const int q = q0 + wq + nt * 8 + 2 * (lane & 3) + (i & 1);
-        if (p < j.P && q < j.Q)
-          out[j.out + (j.transpose ? (long long)q * j.P + p
-                                   : (long long)p * j.Q + q)] = acc[mt][nt][i];
+                for (int i = 0; i < 4; ++i) {
+                  const float2 f = unpack_bf16(af[buf][kk][i]);
+                  af[buf][kk][i] =
+                      pack_bf16(lrelu(f.x, g.slope), lrelu(f.y, g.slope));
+                }
+              }
+              fence_regs(af[buf][kk]);
+            }
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < WG_KR / 16; ++kk) {
+            const uint64_t db =
+                gmma_desc(st + 2 * WG_A + kk * 2048, WG_B, 1024, SWZ_128);
+            if constexpr (N == WG_QMAX) {
+              wgmma_rs_n192<1>(acc, af[buf][kk], db, 1);
+            } else {
+              const uint64_t da =
+                  gmma_desc(st + wg * WG_A + kk * 2048, WG_A, 1024, SWZ_128);
+              wgmma_ss_n32<1, 1>(acc, da, db, 1);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage is read
+        }
+        if (pending >= 0) {
+          __syncwarp();
+          if (l == 0) mbar_arrive(&empty[pending % WG_STAGES]);
+        }
+        pending = q++;
+      };
+      using std::integral_constant;
+      for (int s = 0; s < it.nst; s += 2) {
+        stage(integral_constant<int, 0>{});
+        if (s + 1 < it.nst) stage(integral_constant<int, 1>{});
       }
-  // every row of ones^T B holds the column sums: row 0 (lanes 0-3); every
-  // column of A^T ones holds them: column 0 (lanes 4r)
-  if (bias_b && lane < 4) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int q = q0 + wq + nt * 8 + 2 * lane + e;
-        if (q < j.Q) out[j.bias_out + q] = bacc[nt][e];
+      if (on) wgmma_wait<0>();
+      fence_regs(acc);
+      if (pending >= 0) {
+        __syncwarp();
+        if (l == 0) mbar_arrive(&empty[pending % WG_STAGES]);
       }
-  }
-  if (bias_a && (lane & 3) == 0) {
+      if (!on) return;
+      // the item's rows p and columns qc: dWa_i at (p, qc) of its block,
+      // dWb at (qc, p) (computed as dWb^T), dWc at (p, qc)
+      const long long base =
+          it.job == JOB_DWA
+              ? (it.br == 0 ? 0 : g.dba + g.Na + (long long)(it.br - 1) * g.C * g.Na)
+              : it.job == JOB_DWB ? g.dwb : g.dwc;
 #pragma unroll
-    for (int mt = 0; mt < 3; ++mt)
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = p0 + wp + mt * 16 + (lane >> 2) + 8 * h;
-        if (p < j.P) out[j.bias_out + p] = bacc[mt][2 * h];
-      }
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = p_base + 16 * w + (l >> 2) + 8 * h;
+            const int qc = it.qt * it.QT + 8 * j + 2 * (l & 3) + e;
+            if (p < it.P && qc < it.Q)
+              out[base + (it.job == JOB_DWB ? (long long)qc * it.P + p
+                                            : (long long)p * it.Q + qc)] =
+                  acc[4 * j + 2 * h + e];
+          }
+    };
+    if (it.job == JOB_DWC) run(std::integral_constant<int, 32>{});
+    else run(std::integral_constant<int, WG_QMAX>{});
   }
 }
 
@@ -1670,53 +2006,123 @@ void add_wf_job(WfArgs& ga, int S, const void* const* a, int blocks, int lda,
   ga.n_items += S * j.tiles_p * j.tiles_q;
 }
 
-int launch_tc(const TcRowArgs& ra, TcGradArgs& ga, int S, float* dw,
+// bf16: (a), (b), (c). The TMA maps hold the operands' addresses; make_map
+// keeps the maps it encoded, so a call on the buffers of an earlier call
+// (a training step's, which the caching allocator hands out again) encodes
+// none. As launch_f32, the kernels' attributes are set, and the device's SM
+// count read, on a device's first launch. Grids: (a) min(tiles, SMs), (b)
+// min(work items, SMs), persistent blocks.
+int launch_tc(const void* const* xs, const void* const* was, const void* h1,
+              const void* wb, const void* bb, const void* wc, const void* g,
+              void* const* dxs, void* dw, void* ws, void* partial, int k,
+              int M, int C, int Na, int Nb, int Nc, int S, float slope,
               cudaStream_t stream) {
-  const TcSmem L = tc_smem(ra.Cp, ra.Nap, ra.Nbp, ra.Ncp);
-  const size_t smem = sizeof(bf16) * (size_t)L.total;
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const int Ncp = (Nc + 15) / 16 * 16;
+  bf16* w = static_cast<bf16*>(ws);
+  bf16* h2ws = w;
+  bf16* dpre2ws = w + (size_t)M * Nb;
+  bf16* dpre1ws = w + (size_t)M * 2 * Nb;
+  bf16* gws = w + (size_t)M * (2 * Nb + Na);
+  const int nkb = (Na + TC_KB - 1) / TC_KB;
+  const bool wide = Nb > TC_NB || Ncp > TC_NCW;
+  const int nwg =
+      !wide && nkb <= 6 && tc_layout(Na, Nb, Ncp, 2).total <= SMEM_LIMIT ? 2 : 1;
+  const int smem_a = tc_layout(Na, Nb, Ncp, nwg).total;
+  constexpr int smem_b = WG_STAGES * (WG_SLOT + 16) + 1024;
+  static_assert(smem_b <= SMEM_LIMIT, "bf16 K3 (b) exceeds a block's shared memory");
+  if (smem_a > SMEM_LIMIT || nkb > 8) return (int)cudaErrorInvalidValue;
+
+  const CUtensorMapSwizzle s128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle s64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  TcRowArgs ra;
+  TcGradArgs ga;
+  bool ok = make_map(&ra.h1, h1, Na, M, 2 * Na, TC_KB, TC_ROWS, s128) &&
+            make_map(&ra.dpre1, dpre1ws, Na, M, 2 * Na, TC_KB, TC_ROWS, s128) &&
+            make_map(&ra.wb, wb, Nb, Na, 2 * Nb, 32, TC_KB, s64) &&
+            make_map(&ga.dpre2, dpre2ws, Nb, M, 2 * Nb, 64, WG_KR, s128) &&
+            make_map(&ga.h2, h2ws, Nb, M, 2 * Nb, 64, WG_KR, s128) &&
+            make_map(&ga.dpre1, dpre1ws, Na, M, 2 * Na, WG_BC, WG_KR, s128) &&
+            make_map(&ga.h1, h1, Na, M, 2 * Na, WG_BC, WG_KR, s128) &&
+            make_map(&ga.glp, gws, Ncp, M, 2 * Ncp, WG_BC, WG_KR, s128);
+  for (int i = 0; i < k && ok; ++i)
+    ok = make_map(&ra.wa[i], was[i], Na, C, 2 * Na, TC_KB, TC_CB, s128) &&
+         make_map(&ga.x[i], xs[i], C, M, 2 * C, 64, WG_KR, s128);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < MAX_BRANCHES; ++i) {
+    ra.x[i] = static_cast<const bf16*>(xs[i]);
+    ra.dx[i] = static_cast<bf16*>(dxs[i]);
+  }
+  ra.g = static_cast<const float*>(g);
+  ra.bb = static_cast<const float*>(bb);
+  ra.wc = static_cast<const bf16*>(wc);
+  ra.h2ws = h2ws;
+  ra.dpre2ws = dpre2ws;
+  ra.gws = gws;
+  ra.k = k; ra.M = M; ra.C = C; ra.Na = Na; ra.Nb = Nb; ra.Nc = Nc;
+  ra.Ncp = Ncp;
+  ra.slope = slope;
+
+  // offsets in the flat output
+  const long long dba = (long long)C * Na, dwb = (long long)k * C * Na + Na;
+  const long long dbb = dwb + (long long)Na * Nb, dwc = dbb + Nb;
+  const long long dbc = dwc + (long long)Nb * Nc;
+  ga.gf = static_cast<const float*>(g);
+  ga.partial = static_cast<float*>(partial);
+  ga.k = k; ga.M = M; ga.C = C; ga.Na = Na; ga.Nb = Nb; ga.Nc = Nc;
+  ga.Ncp = Ncp; ga.S = S;
+  ga.chunk = ((long long)M + S - 1) / S;
+  ga.chunk = (ga.chunk + WG_KR - 1) / WG_KR * WG_KR;
+  ga.total = dbc + Nc;
+  ga.dba = dba; ga.dwb = dwb; ga.dbb = dbb; ga.dwc = dwc; ga.dbc = dbc;
+  ga.slope = slope;
+
+  static std::atomic<int> sms_of[MAX_DEVICES];  // 0: not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (ra.M + TC_ROWS - 1) / TC_ROWS;
-  const int grid = tiles < sms ? tiles : sms;  // persistent blocks
-  bwd_rows_tc_kernel<<<grid, TC_THREADS, smem, stream>>>(ra);
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    const void* kernels[4] = {(const void*)bwd_rows_tc_kernel<6, 2, false>,
+                              (const void*)bwd_rows_tc_kernel<8, 1, false>,
+                              (const void*)bwd_rows_tc_kernel<8, 1, true>,
+                              (const void*)wgrad_tc_kernel};
+    for (int i = 0; i < 4; ++i) {
+      err = cudaFuncSetAttribute(kernels[i],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 i < 3 ? SMEM_LIMIT : smem_b);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  // two warpgroups at the model's widths; one, with every K block of h1
+  // in registers (Na <= 512), elsewhere
+  void (*rows)(TcRowArgs) = wide       ? bwd_rows_tc_kernel<8, 1, true>
+                            : nwg == 2 ? bwd_rows_tc_kernel<6, 2, false>
+                                       : bwd_rows_tc_kernel<8, 1, false>;
+  const int tiles = (M + TC_ROWS * nwg - 1) / (TC_ROWS * nwg);
+  rows<<<tiles < sms ? tiles : sms, 128 * (nwg + 1), smem_a, stream>>>(ra);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const TcJob& last = ga.job[ga.n_jobs - 1];
-  const int wtiles = last.tile0 + 1;  // the last job is dbc's, one tile
-  const int wsmem = (int)(sizeof(bf16) * WG_STAGES * WG_STAGE);
-  err = cudaFuncSetAttribute(
-      wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem);
-  if (err != cudaSuccess) return (int)err;
-  wgrad_tc_kernel<<<dim3(wtiles, S), TC_THREADS, wsmem, stream>>>(ga);
+  // (b)'s items: E of one shape per split, and the small ones; the blocks
+  // that take the E items are a multiple of E where a block is left over
+  const int e_items = tc_e(ga);
+  const int items = (e_items + tc_small(ga)) * S;
+  const int wgrid = items < sms ? items : sms;
+  ga.ge = wgrid > e_items ? (wgrid - 1) / e_items * e_items : wgrid;
+  if (ga.ge > e_items * S) ga.ge = wgrid;
+  wgrad_tc_kernel<<<wgrid, WG_THREADS, smem_b, stream>>>(ga);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   reduce_splits_kernel<<<(unsigned)((ga.total + THREADS - 1) / THREADS),
-                         THREADS, 0, stream>>>(ga.partial, dw, ga.total, S);
+                         THREADS, 0, stream>>>(ga.partial,
+                                               static_cast<float*>(dw),
+                                               ga.total, S);
   return (int)cudaGetLastError();
-}
-
-void add_tc_job(TcGradArgs& ga, int& tile, const void* a, const void* b,
-                int lda, int ldb, int P, int Q, int a_lrelu, int bias,
-                int transpose, long long out, long long bias_out) {
-  TcJob& j = ga.job[ga.n_jobs++];
-  j.a = static_cast<const bf16*>(a); j.b = b;
-  j.lda = lda; j.ldb = ldb; j.P = P; j.Q = Q;
-  j.a_lrelu = a_lrelu; j.bias = bias; j.transpose = transpose;
-  j.colsum_f32 = a == nullptr;
-  j.out = out; j.bias_out = bias_out;
-  j.tiles_q = j.colsum_f32 ? 1 : (Q + TILE_Q - 1) / TILE_Q;
-  j.tile0 = tile;
-  tile += j.colsum_f32 ? 1 : ((P + TILE_P - 1) / TILE_P) * j.tiles_q;
 }
 
 }  // namespace
@@ -1757,48 +2163,8 @@ extern "C" int nin_head_bwd(
 
   if (is_bf16) {
     if (C % 8 || Na % 8 || Nb % 8) return (int)cudaErrorInvalidValue;
-    bf16* w = static_cast<bf16*>(ws);
-    TcRowArgs ra;
-    for (int i = 0; i < MAX_BRANCHES; ++i) {
-      ra.x[i] = static_cast<const bf16*>(xs[i]);
-      ra.wa[i] = static_cast<const bf16*>(was[i]);
-      ra.dx[i] = static_cast<bf16*>(dxs[i]);
-    }
-    ra.h1 = static_cast<const bf16*>(h1);
-    ra.wb = static_cast<const bf16*>(wb);
-    ra.bb = static_cast<const float*>(bb);
-    ra.wc = static_cast<const bf16*>(wc);
-    ra.g = static_cast<const float*>(g);
-    ra.h2ws = w;
-    ra.dpre2ws = w + (size_t)M * Nb;
-    ra.dpre1ws = w + (size_t)M * 2 * Nb;
-    ra.gws = w + (size_t)M * (2 * Nb + Na);
-    ra.k = k; ra.M = M; ra.C = C; ra.Na = Na; ra.Nb = Nb; ra.Nc = Nc;
-    auto p16 = [](int v) { return (v + 15) / 16 * 16; };
-    ra.Cp = p16(C); ra.Nap = p16(Na); ra.Nbp = p16(Nb); ra.Ncp = p16(Nc);
-    ra.slope = slope;
-    if (ra.Cp > 4 * MAX_NT * 8) return (int)cudaErrorInvalidValue;
-
-    TcGradArgs ga;
-    ga.n_jobs = 0;
-    int tile = 0;
-    for (int i = 0; i < k; ++i)  // dWa_i = lrelu(x_i)^T dpre1; dba with dWa_0
-      add_tc_job(ga, tile, xs[i], ra.dpre1ws, C, Na, C, Na, 1,
-                 i == 0 ? BIAS_OF_B : BIAS_NONE, 0,
-                 i == 0 ? 0 : dba + Na + (long long)(i - 1) * C * Na, dba);
-    // dWb^T = dpre2^T h1, stored transposed; dbb = sum of dpre2
-    add_tc_job(ga, tile, ra.dpre2ws, h1, Nb, Na, Nb, Na, 0, BIAS_OF_A, 1,
-               dwb, dbb);
-    // dWc = h2^T g_lp (g rounded by (a)); then dbc = sum of the fp32 g
-    add_tc_job(ga, tile, ra.h2ws, ra.gws, Nb, ra.Ncp, Nb, Nc, 0, BIAS_NONE,
-               0, dwc, 0);
-    add_tc_job(ga, tile, nullptr, g, 0, 0, 0, Nc, 0, BIAS_NONE, 0, 0, dbc);
-    ga.M = M;
-    ga.chunk = ((long long)M + S - 1) / S;
-    ga.total = dbc + Nc;
-    ga.partial = static_cast<float*>(partial);
-    ga.slope = slope;
-    return launch_tc(ra, ga, S, dwf, s);
+    return launch_tc(xs, was, h1, wb, bb, wc, g, dxs, dw, ws, partial, k, M, C,
+                     Na, Nb, Nc, S, slope, s);
   }
 
   if (Na > R_MAX_KS * R_KS) return (int)cudaErrorInvalidValue;

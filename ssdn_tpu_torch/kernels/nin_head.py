@@ -64,14 +64,20 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 # K3's launch geometry; csrc/nin_head_bwd.cu uses the same numbers.
 SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-_ROWS_TC = 64            # (a) rows per block, bf16 tensor-core kernel
-_WA_CHUNK = 32           # (a) Wa_i columns per stage of its ring
-_WA_STAGES = 4           # (a) the ring's stages
-_TILE_P, _TILE_Q = 96, 128  # (b) bf16 output tile (P x Q)
-_STAGE_ROWS = 32         # (b) bf16 rows per stage of its ring
-_WG_STAGES = 4           # (b) the ring's stages
-_SKEW = 8                # bf16 elements added to every shared row
-_MAX_C_TC = 256          # (a) bf16: dx_i's columns all in one warp pass
+# bf16 on wgmma and TMA. (a) rows: warpgroups of 64 rows, two per block
+# (one where two do not fit: Na 512), and one more that copies; pre2, dh2
+# and dpre2 in passes of 96 columns of Nb; h1 / dpre1 in TMA boxes of 64
+# rows x 64 columns; one 10-slot ring of 12 KB slots (Wb's and the Wa_i's
+# chunks); a window of Wc^T (96 x up to 64 columns), bb, the mbarriers;
+# 1 KB of alignment slack. (b) weight grads: items of 128 rows x 192
+# (dWa_i, dWb^T) or 32 (dWc) columns, a 5-stage ring of 40 KB.
+_TC_ROWS, _TC_NB, _TC_KB, _TC_NCW = 64, 96, 64, 64
+_TC_STAGES = 10
+_TC_SLOT = 2 * 96 * _TC_KB               # bytes of a ring slot
+_WG_STAGES, _WG_P, _WG_QA, _WG_QC = 5, 128, 192, 32
+_WG_SLOT = 2 * (2 * 64 * 64) + 192 // 64 * (2 * 64 * 64)
+_MAX_C_TC = 256          # (a) bf16: input channels
+_SKEW = 8                # bf16 elements added to every shared row (K2)
 # fp32 (a) on the FMA pipes, two launches: 128-row tiles, K in slices of
 # 32, 256 threads, one block per SM. (a1) pre2 in passes of 96 columns of
 # Nb, dh2's Nc in groups of 16, dh1 in chunks of 128 columns of Na, through a
@@ -261,16 +267,27 @@ def _k3_wgrad_launch(m: int, c: int, na: int, nb: int, nc: int, k: int,
                          min(items, _K3W_BLOCKS * _H100_SMS), 4 * m * per_row)
 
 
+def _tc_rows_smem(na: int, nb: int, ncp: int, warpgroups: int) -> int:
+    """bf16 (a)'s shared bytes (``csrc/nin_head_bwd.cu``'s ``tc_layout``):
+    the tile's h1 boxes, the ring, a window of Wc^T (96 rows x up to 64
+    columns of Nc rounded up to 16), bb (Nb in whole passes of 96), the
+    mbarriers and the alignment slack."""
+    return (_cdiv(na, _TC_KB) * warpgroups * 2 * _TC_ROWS * _TC_KB
+            + _TC_STAGES * _TC_SLOT + _TC_NB * min(ncp, _TC_NCW) * 2
+            + _cdiv(nb, _TC_NB) * _TC_NB * 4 + (2 + 2 * _TC_STAGES) * 8 + 1024)
+
+
 @dataclasses.dataclass(frozen=True)
 class K3Plan:
     """What one K3 launch needs: (a) rows per tile, row tiles and shared
     bytes per block (fp32: the larger of its two launches, described in
-    ``row_launches``), (b) output tiles and shared bytes (bf16: one block
-    per tile and split; fp32: the tiles x splits work items of
-    ``wgrad_launch``), the workspace (elements of x's dtype: h2, dpre2,
-    dpre1 and, in bf16, g rounded to bf16 and padded to 16 columns), the
-    flat fp32 weight-grad sizes and the partial sums (floats; in fp32 one
-    more, (b)'s work-item counter)."""
+    ``row_launches``; bf16: 64 rows per warpgroup, two where they fit), (b)
+    output tiles per split and shared bytes (fp32: the tiles x splits work
+    items of ``wgrad_launch``; bf16: its work items per split), the
+    workspace (elements of x's dtype: h2, dpre2, dpre1 and, in bf16, g
+    rounded to bf16 and padded to 16 columns), the flat fp32 weight-grad
+    sizes and the partial sums (floats; in fp32 one more, (b)'s work-item
+    counter)."""
     splits: int
     rows_per_block: int
     row_blocks: int
@@ -284,12 +301,10 @@ class K3Plan:
     wgrad_launch: K3WgradLaunch | None = None
 
     @property
-    def wgrad_blocks(self) -> int:
-        """(b)'s blocks launched: one per tile and split (bf16), or fp32's
-        persistent blocks (``wgrad_launch.blocks``)."""
-        if self.wgrad_launch is not None:
-            return self.wgrad_launch.blocks
-        return self.wgrad_tiles * self.splits
+    def wgrad_blocks(self) -> int | None:
+        """fp32 (b)'s persistent blocks launched (``wgrad_launch.blocks``);
+        None in bf16, whose launcher sizes its grid by the device's SMs."""
+        return None if self.wgrad_launch is None else self.wgrad_launch.blocks
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -305,18 +320,17 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
     # flat fp32 output: [dWa_0 | dba | dWa_1.. | dWb | dbb | dWc | dbc]
     sizes = (c * na, na, *[c * na] * (k - 1), na * nb, nb, nb * nc, nc)
     if dtype == torch.bfloat16:
-        p16 = lambda v: _cdiv(v, 16) * 16
-        cp, nap, nbp, ncp = p16(c), p16(na), p16(nb), p16(nc)
-        rows = _ROWS_TC
-        smem = 2 * (nap * (nbp + _SKEW) + rows * (nap + _SKEW)
-                    + rows * (max(nbp, cp) + _SKEW) + rows * (ncp + _SKEW)
-                    + nbp * (ncp + _SKEW)
-                    + _WA_STAGES * cp * (_WA_CHUNK + _SKEW))
-        tq = _cdiv(na, _TILE_Q)
-        # dWa_i (C x Na), dWb^T (Nb x Na), dWc (Nb x Nc), dbc's column sums
-        tiles = (k * _cdiv(c, _TILE_P) * tq + _cdiv(nb, _TILE_P) * tq
-                 + _cdiv(nb, _TILE_P) * _cdiv(nc, _TILE_Q) + 1)
-        wsmem = _WG_STAGES * 2 * _STAGE_ROWS * (_TILE_P + _TILE_Q + 2 * _SKEW)
+        ncp = _cdiv(nc, 16) * 16
+        # two warpgroups where they fit and Wc^T is one window (Nb <= 96,
+        # Nc <= 64); else one, over passes of Nb and windows of Nc
+        wide = nb > _TC_NB or ncp > _TC_NCW
+        wgs = 1 if wide or _tc_rows_smem(na, nb, ncp, 2) > SMEM_LIMIT else 2
+        rows, smem = _TC_ROWS * wgs, _tc_rows_smem(na, nb, ncp, wgs)
+        # (b)'s items per split: dWa_i's and dWb^T's of 128 x 192, dWc's of
+        # 128 x 32, and dbc's column sums
+        qa, pb = _cdiv(na, _WG_QA), _cdiv(nb, _WG_P)
+        tiles = (k * _cdiv(c, _WG_P) + pb) * qa + pb * _cdiv(ncp, _WG_QC) + 1
+        wsmem = _WG_STAGES * (_WG_SLOT + 16) + 1024
         ws = m * (2 * nb + na + ncp)
         launches, wlaunch = (), None
     else:
@@ -341,16 +355,15 @@ def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
                   wgrad_tiles=tiles, wgrad_smem=wsmem,
                   workspace=ws, dw_sizes=sizes,
                   partial=splits * sum(sizes) + (wlaunch is not None),
-                  row_launches=launches,
-                  wgrad_launch=wlaunch)
+                  row_launches=launches, wgrad_launch=wlaunch)
 
 
 def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:
     """What the kernels take beyond ``_check``: Na <= ``MAX_NA``, shared
     memory within one block's limit (fp32: fixed, any widths and
     alignment) and, for the bf16 tensor-core kernels, widths C, Na, Nb
-    that are multiples of 8 and operands on 16-byte boundaries (their
-    rows move in 16-byte copies), and C <= ``_MAX_C_TC``."""
+    that are multiples of 8 and operands on 16-byte boundaries (TMA moves
+    their rows), and C <= ``_MAX_C_TC``."""
     if na > MAX_NA:
         raise ValueError(f"K3 supports at most {MAX_NA} layer-a columns, "
                          f"got {na}")
@@ -542,8 +555,8 @@ def nin_head_bwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     ws = torch.empty(plan.workspace, dtype=dt, device=dev)
     partial = torch.empty(plan.partial, dtype=torch.float32, device=dev)
     # the fp32 kernels stage slices of transposed weights (Wa_i^T for dx_i,
-    # Wb^T for dh1); the bf16 kernel reads Wa_i and Wb as they are
-    # (ldmatrix transposes in shared memory), so it takes no copies
+    # Wb^T for dh1); the bf16 kernels read Wa_i and Wb as they are (wgmma
+    # reads either major order from shared memory), so they take no copies
     if dt == torch.bfloat16:
         wats, wbt = list(was), None
     else:

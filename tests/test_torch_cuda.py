@@ -511,10 +511,93 @@ def test_k3_cuda_matches_twin(cuda, dtype, m, k, n_out):
 
 @pytest.mark.parametrize("m", [1, 63, 65, 4133])
 def test_k3_bf16_ragged_rows_match_twin(cuda, m):
-    """The tensor-core kernels at ragged M: a tile of 64 rows (a) and a
-    stage of 32 rows (b) part-filled, the rest zero and masked."""
+    """The tensor-core kernels at ragged M: a tile of 128 rows (a) and a
+    stage of 64 rows (b) part-filled, the rest zero and masked."""
     _k3_matches_twin(_k3_operands(m, m, 4, 10, torch.bfloat16),
                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [127, 129, 255, 257])
+def test_k3_bf16_tile_edges_match_twin(cuda, m):
+    """The wgmma kernels at the edges of (a)'s 128-row tiles and its
+    warpgroups' 64 rows: a tile or a warpgroup's rows part-filled or empty
+    (TMA zero-fills the loads past M and clips the stores); (b)'s one split
+    of whole 64-row stages, the last part-filled."""
+    _k3_matches_twin(_k3_operands(m + 7, m, 4, 10, torch.bfloat16),
+                     torch.bfloat16)
+
+
+# Na MAX_NA (eight K blocks of h1: one warpgroup per block, dpre1's A
+# fragments 128 registers); C 200 (three passes of 96 over dx_i's columns)
+# with Nc 40 (three K steps of dh2, two column tiles of dWc); Nb 128 at the
+# model's Na (two passes of pre2, the second of 32 columns; dh1 reads the
+# second pass's dpre2 back); Nb 600 at Na 64 (seven passes; dWb^T, dWc and
+# dbb in five row tiles of 128); Nb 200 with Nc 40 (Wc^T's window rewritten
+# per pass); Nc 100 (the window rewritten per 64 columns of Nc)
+K3_BF16_WIDE = {"na512": dict(na=K2.MAX_NA), "c200-nc40": dict(c=200, n_out=40),
+                "nb128": dict(nb=128), "na64-nb600": dict(na=64, nb=600),
+                "nb200-nc40": dict(nb=200, n_out=40), "nc100": dict(n_out=100)}
+
+
+@pytest.mark.parametrize("widths", list(K3_BF16_WIDE.values()),
+                         ids=list(K3_BF16_WIDE))
+def test_k3_bf16_wide_widths_match_twin(cuda, widths):
+    w = dict(widths)
+    n_out = w.pop("n_out", 10)
+    _k3_matches_twin(_k3_operands(17, 4133, 4, n_out, torch.bfloat16, **w),
+                     torch.bfloat16)
+
+
+def _k3_bf16_step_matches_twin(args):
+    """bf16 K3 against the twin at a training step's M: every output within
+    ``_head_twin_bar``; dx_i on the rows whose dpre2 mask is no tie (an
+    element of pre2 = h1 Wb + bb within 2**-20 of its range of zero, where
+    the tensor cores' and the twin's sums may round to opposite signs; at
+    most one row in 1,000). The weight grads, sums over every row, keep the
+    tie rows."""
+    xs, was, h1, wb, bb, wc, g = args
+    got = K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    ref = K2.torch_reference_bwd(*args)
+    ties = torch.zeros(h1.shape[0], dtype=torch.bool, device=h1.device)
+    pre_max = 0.0
+    for pass_ in (0, 1):
+        for r in range(0, h1.shape[0], 1 << 18):
+            pre2 = h1[r:r + (1 << 18)].float() @ wb.float() + bb.float()
+            if pass_ == 0:
+                pre_max = max(pre_max, pre2.abs().max().item())
+            else:
+                ties[r:r + (1 << 18)] = (pre2.abs() <= 2 ** -20 * pre_max).any(1)
+    assert int(ties.sum()) <= max(1, h1.shape[0] // 1000)
+    flat = lambda r: [*r[0], *r[1], *r[2:]]
+    for i, (a, b) in enumerate(zip(flat(got), flat(ref))):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        if i < len(xs):
+            a, b = a[~ties], b[~ties]
+        assert torch.isfinite(a).all(), i
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=_head_twin_bar(b.float(), torch.bfloat16),
+                                   msg=lambda s, i=i: f"output {i}: {s}")
+    return got
+
+
+@pytest.mark.parametrize("m", [262_144, 1_572_864])
+def test_k3_bf16_training_step_matches_twin(cuda, m):
+    """The model's head at the Trainer's 128 x 128 batch 16 (M 262,144) and
+    the benchmark's 64 x 64 batch 384 (M 1,572,864): k 4, Nc 10; 64 splits
+    of the weight grads, 2,048 or 12,288 row tiles over persistent blocks."""
+    _k3_bf16_step_matches_twin(_k3_operands(23, m, 4, 10, torch.bfloat16))
+
+
+def test_k3_bf16_training_step_is_bitwise_repeatable(cuda):
+    """At the benchmark's M (1,572,864): two launches give the same bits (no
+    float atomics; a split count fixed by M; every block walks its tiles
+    and items in a fixed order)."""
+    args = _k3_operands(29, 1_572_864, 4, 10, torch.bfloat16)
+    a, b = K2.nin_head_bwd(*args), K2.nin_head_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip([*a[0], *a[1], *a[2:]], [*b[0], *b[1], *b[2:]]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("m,k", [(1000, 4), (77, 1), (4133, 2)])

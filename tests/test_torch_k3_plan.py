@@ -27,7 +27,10 @@ def test_shared_memory_fits_one_block(dtype, na):
     plan = _plan(1_572_864, dtype, **dict(MODEL, na=na))
     assert plan.rows_smem <= K2.SMEM_LIMIT
     if dtype == BF16:
-        assert plan.wgrad_smem <= K2.SMEM_LIMIT // 3  # (b): two blocks per SM
+        # (b): 5 stages of 64 rows x (2 x 64 + 192) bf16 and their two
+        # mbarriers, one persistent block per SM; fixed
+        assert plan.wgrad_smem == 5 * (64 * 320 * 2 + 16) + 1024
+        assert plan.wgrad_smem <= K2.SMEM_LIMIT
     else:
         # (b): two blocks per SM in the H100 SM's 228 KB, 1 KB reserved per
         # block; 2 stages of 32 rows x (128 + 128) floats and two claimed
@@ -43,14 +46,17 @@ def test_shared_memory_fits_one_block(dtype, na):
         assert plan.rows_smem == 4 * (3 * (128 * 36 + 32 * 128) + 96 * 132
                                       + 2 * 128 * 20 + 16 * 96) + 2 * 128 * 64
         assert plan.rows_smem == 198_144
-    if dtype == BF16 and na == 384:
-        # Wb 384 x 104, h1 64 x 392, dpre2/dx 64 x 104, g 64 x 24, Wc 96 x 24,
-        # the Wa ring 4 x 96 x 40: bf16 elements, 16-column pads + skew 8
-        assert plan.rows_smem == 2 * (384 * 104 + 64 * 392 + 64 * 104
-                                      + 64 * 24 + 96 * 24 + 4 * 96 * 40)
-        # (b): 4 stages of 32 rows x (96 + 8 + 128 + 8) bf16
-        assert plan.wgrad_smem == 4 * 32 * 240 * 2
-
+    if dtype == BF16:
+        # (a): h1's boxes of 64 x 64 (Na / 64 per warpgroup; two
+        # warpgroups, one at Na 512), the ring (10 slots of 96 x 64 bf16),
+        # Wc^T (96 x 16), bb (96 floats), 22 mbarriers and 1 KB of
+        # alignment slack: bytes
+        wgs = 2 if na == 384 else 1
+        assert plan.rows_per_block == 64 * wgs
+        assert plan.rows_smem == (na // 64 * wgs * 8192 + 10 * 96 * 64 * 2
+                                  + 96 * 16 * 2 + 96 * 4 + 22 * 8 + 1024)
+        if na == 384:
+            assert plan.rows_smem == 225_840
 
 def test_splits_are_a_function_of_m_alone():
     for m in (1, 63, 4096, 4097, 50_000, 262_144, 1_572_864):
@@ -74,18 +80,26 @@ def test_workspace_and_flat_output():
 
 
 @pytest.mark.parametrize("m,bf16_blocks,f32_blocks",
-                         [(1, 1, 1), (63, 1, 1), (65, 2, 1), (4097, 65, 33)])
+                         [(1, 1, 1), (63, 1, 1), (65, 1, 1), (4097, 33, 33)])
 def test_row_blocks_at_ragged_m(m, bf16_blocks, f32_blocks):
     assert _plan(m, BF16, **MODEL).row_blocks == bf16_blocks
     assert _plan(m, F32, **MODEL).row_blocks == f32_blocks
-    assert _plan(m, BF16, **MODEL).rows_per_block == 64
+    # bf16: two warpgroups of 64 rows at the model's widths
+    assert _plan(m, BF16, **MODEL).rows_per_block == 128
 
 
 def test_tiles_at_model_and_narrow_widths():
-    # bf16 (b): 96 x 128 tiles of dWa_i (96 x 384), dWb^T (96 x 384), dWc,
-    # and one block of dbc's column sums
-    assert _plan(4133, BF16, **MODEL).wgrad_tiles == 4 * 3 + 3 + 1 + 1
-    assert _plan(4133, BF16, **MODEL).wgrad_blocks == 17 * 2
+    # bf16 (b): items of 128 x 192 of dWa_i (96 x 384: one row tile, two
+    # column tiles each) and dWb^T (96 x 384: two), one of dWc (96 x 10)
+    # and one of dbc's column sums, per split; two splits at M 4133; the
+    # launcher's grid is min(items, the device's SMs)
+    bf = _plan(4133, BF16, **MODEL)
+    assert bf.wgrad_tiles == 4 * 2 + 2 + 1 + 1
+    assert bf.wgrad_tiles * bf.splits == 12 * 2
+    assert bf.wgrad_blocks is None
+    # Nb 200: dWb^T and dWc in two row tiles of 128
+    assert _plan(4133, BF16, **dict(MODEL, nb=200)).wgrad_tiles == (
+        4 * 2 + 2 * 2 + 2 * 1 + 1)
     # fp32 (b): the four dWa_i as one 384 x 384 product in 128 x 128 tiles,
     # dWb (384 x 96) in 128 x 96, dWc (96 x 10) in one 128 x 16; the bias
     # sums ride in the tiles of row 0
@@ -93,9 +107,9 @@ def test_tiles_at_model_and_narrow_widths():
     assert _plan(4133, F32, **MODEL).wgrad_blocks == 13 * 2
     narrow = _plan(1000, BF16, **NARROW)
     assert narrow.wgrad_tiles == 4 + 1 + 1 + 1
-    # C 40, Na 72, Nb 24, Nc 3 pad to 48, 80, 32, 16 (dpre2/dx: 48 + 8)
-    assert narrow.rows_smem == 2 * (80 * 40 + 64 * 88 + 64 * 56 + 64 * 24
-                                    + 32 * 24 + 4 * 48 * 40)
+    # Na 72: two K blocks of h1 per warpgroup; Nc 3 pads to 16
+    assert narrow.rows_smem == (2 * 2 * 8192 + 10 * 12288 + 96 * 16 * 2
+                                + 96 * 4 + 22 * 8 + 1024)
 
 
 def test_launch_checks():
@@ -112,6 +126,15 @@ def test_launch_checks():
                             264, 72, 24, BF16)
     with pytest.raises(ValueError, match="16-byte"):
         K2._check_k3_launch(ok, (t[1:],), 40, 72, 24, BF16)
+    # bf16: pre2, dh2 and dpre2 run in passes of 96 columns of Nb, so a
+    # wide Nb runs; only bb's Nb floats beside h1's boxes and the ring can
+    # outgrow a block
+    for nb in (104, 600):
+        K2._check_k3_launch(_plan(64, BF16, **dict(NARROW, nb=nb)), (t,),
+                            40, 72, nb, BF16)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        K2._check_k3_launch(_plan(64, BF16, **dict(MODEL, na=512, nb=12_000)),
+                            (t,), 96, 512, 12_000, BF16)
     # fp32's shared bytes are fixed: Nb 1000 runs in passes (the first fp32
     # kernel's Na- and Nb-sized tiles refused it)
     big = _plan(64, F32, **dict(MODEL, na=512, nb=1000))
@@ -267,17 +290,15 @@ def test_fp32_wgrad_items_at_ragged_m(m, splits, chunk, last):
     assert plan.wgrad_launch.products == WGRAD_PRODUCTS["model"]
 
 
-@pytest.mark.parametrize("m,items,blocks,bf16_blocks", [
-    (4133, 26, 26, 34), (1_572_864, 832, 264, 1088)])
-def test_fp32_wgrad_grid_is_the_blocks_launched(m, items, blocks, bf16_blocks):
-    """``wgrad_blocks`` is the grid the launcher starts: in fp32 min(work
-    items, 2 blocks per SM x the H100 SXM's 132 SMs), persistent blocks
-    that claim the items past the first grid's; in bf16 one block per tile
-    and split."""
+@pytest.mark.parametrize("m,items,blocks", [
+    (4133, 26, 26), (1_572_864, 832, 264)])
+def test_fp32_wgrad_grid_is_the_blocks_launched(m, items, blocks):
+    """``wgrad_blocks`` is the grid the launcher starts: min(work items, 2
+    blocks per SM x the H100 SXM's 132 SMs), persistent blocks that claim
+    the items past the first grid's."""
     launch = _plan(m, F32, **MODEL).wgrad_launch
     assert (launch.items, launch.blocks) == (items, blocks)
     assert _plan(m, F32, **MODEL).wgrad_blocks == blocks
-    assert _plan(m, BF16, **MODEL).wgrad_blocks == bf16_blocks
 
 
 @pytest.mark.parametrize("widths", [MODEL, dict(MODEL, na=K2.MAX_NA),
@@ -335,3 +356,127 @@ def test_probe_edits_match_the_source(name):
         assert src.count(old) == 1, old
         assert old != new
     assert k2_probe.edited_source(edits, k3_probe.SOURCE) != src
+
+
+# ------------------- bf16 on wgmma and TMA -------------------
+
+def _mma_sync_rows_smem(c, na, nb, nc):
+    """The shared bytes of the bf16 rows kernel that ran on ``mma.sync``
+    before the wgmma design (its only limit on the widths beside C, Na, Nb
+    multiples of 8, C <= 256 and Na <= MAX_NA): Wb, h1's tile, dpre2 / dx,
+    g's tile, Wc and a 4-stage Wa_i ring, bf16, widths padded to 16 and
+    rows skewed by 8."""
+    p16 = lambda v: -(-v // 16) * 16
+    cp, nap, nbp, ncp = p16(c), p16(na), p16(nb), p16(nc)
+    return 2 * (nap * (nbp + 8) + 64 * (nap + 8) + 64 * (max(nbp, cp) + 8)
+                + 64 * (ncp + 8) + nbp * (ncp + 8) + 4 * cp * 40)
+
+
+@pytest.mark.parametrize("na", [8, 32, 64, 72, 128, 200, 384, 448, K2.MAX_NA])
+def test_bf16_takes_every_width_the_mma_sync_kernel_took(na):
+    """Every width the mma.sync kernel took still runs: at C 8, 96 and 256,
+    Nc from 1 to 824 and Nb in multiples of 8 up to 1,024, wherever the old
+    kernel's shared memory fitted one block, the wgmma kernel's check
+    passes (pre2 in passes of 96 columns of Nb; Wc^T in a window of 96 x
+    64 columns, rewritten as dh2 moves on)."""
+    t = torch.zeros(16, dtype=BF16)
+    taken = 0
+    for c in (8, 96, 256):
+        for nc in (1, 3, 9, 10, 16, 17, 40, 49, 64, 65, 100, 150, 200, 300,
+                   500, 824):
+            for nb in range(8, 1025, 8):
+                if _mma_sync_rows_smem(c, na, nb, nc) > K2.SMEM_LIMIT:
+                    continue
+                plan = _plan(64, BF16, c=c, na=na, nb=nb, nc=nc, k=4)
+                K2._check_k3_launch(plan, (t,), c, na, nb, BF16)
+                taken += 1
+    assert taken > 0
+    if na == 384:  # the model's Na: the old kernel took Nb up to 144
+        assert _mma_sync_rows_smem(96, 384, 144, 10) <= K2.SMEM_LIMIT
+        assert _mma_sync_rows_smem(96, 384, 152, 10) > K2.SMEM_LIMIT
+
+
+# (Nb, Nc, Na): warpgroups and (a)'s shared bytes: h1's boxes, the ring
+# (10 x 12 KB), the window of Wc^T (96 x min(Nc rounded up to 16, 64)
+# bf16), bb (Nb rounded up to 96 floats), 22 mbarriers, 1 KB of slack. Two
+# warpgroups where Wc^T is one window and their boxes fit; one where Nb >
+# 96 or Nc > 64 (passes over Nb, windows of Nc)
+TC_SMEM = {"model": (96, 10, 384, 2, 6 * 2 * 8192 + 3072 + 384),
+           "nc40": (96, 40, 384, 2, 6 * 2 * 8192 + 9216 + 384),
+           "nc64": (96, 64, 384, 1, 6 * 8192 + 12288 + 384),
+           "nb128": (128, 10, 384, 1, 6 * 8192 + 3072 + 768),
+           "nb200-nc40": (200, 40, 384, 1, 6 * 8192 + 9216 + 1152),
+           "na64-nb600": (600, 10, 64, 1, 8192 + 3072 + 2688),
+           "na512-nc500": (96, 500, 512, 1, 8 * 8192 + 12288 + 384)}
+
+
+@pytest.mark.parametrize("name", list(TC_SMEM))
+def test_bf16_shared_memory_at_wide_nb_and_nc(name):
+    nb, nc, na, wgs, part = TC_SMEM[name]
+    plan = _plan(4133, BF16, **dict(MODEL, na=na, nb=nb, nc=nc))
+    assert plan.rows_per_block == 64 * wgs
+    assert plan.rows_smem == part + 10 * 12288 + 22 * 8 + 1024
+    assert plan.rows_smem <= K2.SMEM_LIMIT
+    if name == "nc64":  # two warpgroups' boxes would not fit
+        assert plan.rows_smem + 6 * 8192 > K2.SMEM_LIMIT
+
+
+def test_bf16_workspace_and_partials_do_not_grow():
+    """The workspace (h2, dpre2, dpre1, g_lp: M x (2 Nb + Na + Nc rounded up
+    to 16) bf16) and the partial sums (S x the flat output) are the sizes
+    the mma.sync kernels used, and the workspace's parts start on 16-byte
+    boundaries, which TMA needs."""
+    for m in (1, 4133, 262_144, 1_572_864):
+        plan = _plan(m, BF16, **MODEL)
+        assert plan.workspace == m * (2 * 96 + 384 + 16)
+        assert plan.partial == plan.splits * sum(plan.dw_sizes)
+        assert all(m * w * 2 % 16 == 0 for w in (96, 2 * 96, 2 * 96 + 384))
+
+
+def _global_names(path):
+    """The name of every ``__global__`` function in a CUDA source (past
+    ``void`` and attributes such as ``__launch_bounds__(...)``, whose
+    parentheses may nest)."""
+    import re
+    with open(path) as f:
+        src = f.read()
+    names = []
+    for at in re.finditer(r"__global__\s+void\s+", src):
+        i = at.end()
+        while True:
+            attr = re.match(r"(__\w+__)\s*\(", src[i:])
+            if not attr:
+                break
+            i = src.index("(", i)
+            depth = 0
+            while True:
+                depth += {"(": 1, ")": -1}.get(src[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+            i += len(src[i:]) - len(src[i:].lstrip())
+        names.append(re.match(r"\s*(\w+)", src[i:]).group(1))
+    return names
+
+
+def test_every_k3_kernel_is_named_for_the_roofline():
+    """``k3_roofline.train`` sums K3's device time over kernels whose names
+    contain one of its needles (``K3_KERNELS``, read here, not imported);
+    a K3 kernel outside them would drop out of the denominator. Every
+    ``__global__`` function of ``csrc/nin_head_bwd.cu`` carries one."""
+    import ast
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    metric = os.path.join(root, "h100_bench", "metrics", "k3_roofline.train.py")
+    with open(metric) as f:
+        tree = ast.parse(f.read())
+    needles = next(ast.literal_eval(node.value) for node in ast.walk(tree)
+                   if isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "K3_KERNELS"
+                           for t in node.targets))
+    names = _global_names(k3_probe.SOURCE)
+    assert {"bwd_rows_tc_kernel", "wgrad_tc_kernel",
+            "reduce_splits_kernel"} <= set(names)
+    for name in names:
+        assert any(n in name for n in needles), name
