@@ -37,7 +37,8 @@ the tools:
               blind_calibration,parity_check}``
 
 Tensors at the public functions are NHWC, as in the JAX package; inside,
-NCHW in ``channels_last`` memory. Entry points run on the GPU unless the
+NCHW, in ``channels_last`` memory for a bf16 trunk and contiguous for an
+fp32 one (``ops.trunk_memory_format``). Entry points run on the GPU unless the
 caller passes ``device="cpu"``; where the JAX package takes a ``mesh``, the
 port takes a ``parallel.Group``.
 """

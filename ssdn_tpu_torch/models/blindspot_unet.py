@@ -13,7 +13,13 @@ Parameters are a plain dict ``{layer: {"w": OIHW tensor, "b": tensor}}``
 (plus ``noise_scalar/raw`` for constant-blind models); ``params_from_jax``
 and ``params_to_jax`` carry weights to and from the JAX package's HWIO tree
 and the zoo artifacts. ``apply`` takes and returns NHWC, as the JAX
-function does; inside, tensors are NCHW in channels_last memory format.
+function does; inside, tensors are NCHW, and their memory layout follows
+the compute dtype (``ops.trunk_memory_format``): a bf16 trunk runs in
+channels_last (NHWC-dense) at every conv, forward and backward, as cuDNN's
+tensor-core engines compute it; an fp32 trunk runs in contiguous NCHW, as
+its FFT and ``wgrad_alg0`` algorithms do. The rotation fold writes the
+branch batch in that layout, every op of the trunk keeps it, and the
+unfold's backward hands it back (``ops.rotation``).
 
 Backends keep the config's names: ``conv_backend`` / ``head_backend``
 ``"lax"`` runs torch ops (cuDNN / cuBLAS on the GPU), ``"pallas"`` the
@@ -35,10 +41,11 @@ from ssdn_tpu_torch.kernels.shifted_conv import fused_shifted_conv
 from ssdn_tpu_torch.ops import (
     conv2d,
     leaky_relu,
-    rot90,
-    rotation_stack,
+    rotation_fold,
+    rotation_unfold,
     shift_down,
     shifted_maxpool_2x2,
+    trunk_memory_format,
     upsample_2x_nearest,
 )
 from ssdn_tpu_torch.ops.shifted import (
@@ -185,7 +192,9 @@ def _branch(params: Params, x: torch.Tensor, *, shifted: bool,
             decoder_mode: str = "fused",
             fold_shift_down: bool = False,
             emit_preact: bool = False) -> torch.Tensor:
-    """The shared U-Net trunk on a (possibly rotation-folded) NCHW batch.
+    """The shared U-Net trunk on a (possibly rotation-folded) NCHW batch,
+    which keeps x's memory layout at every conv (K1 takes channels_last
+    whatever the dtype: its arm converts where x is NCHW).
 
     fold_shift_down=True (blind-spot torch-ops path) absorbs the final
     shift_down(out, 1) into dec1b's conv padding (conv2d down_shift).
@@ -274,57 +283,50 @@ def apply(params: Params, x: torch.Tensor, *, blindspot: bool = True,
         raise ValueError(f"H, W must be multiples of {STRIDE}, got {h}x{w}")
     # the +1 px blind-spot shift rides dec1b's conv padding on the torch-ops
     # path (free); the kernel path keeps the explicit shift_down
-    fold = conv_backend != "pallas"
+    fold_shift = conv_backend != "pallas"
     # the head kernel absorbs dec1b's LeakyReLU (commutes with derotation):
     # the trunk emits pre-activations in that mode. It runs for every M
     # (the TPU kernel's M % 256 tiling rule has no counterpart here).
     use_fused_head = head_backend == "pallas" and conv_backend != "pallas"
+    # the trunk's layout follows the compute dtype: channels_last for bf16
+    # (cuDNN computes it in NHWC), NCHW for fp32; every op of the trunk
+    # keeps the layout it is given
+    fmt = trunk_memory_format(compute_dtype)
     xc = x.permute(0, 3, 1, 2)  # NCHW view; channels_last if x is NHWC-dense
 
     def trunk(g):
         f = _branch(params, g, shifted=True, compute_dtype=compute_dtype,
                     conv_backend=conv_backend, conv_precision=conv_precision,
-                    decoder_mode=decoder_mode, fold_shift_down=fold,
+                    decoder_mode=decoder_mode, fold_shift_down=fold_shift,
                     emit_preact=use_fused_head)
         # The JAX package puts an optimization_barrier here on its kernel
         # path, against an XLA/Mosaic miscompile of the section downstream
         # of the TPU kernels. Eager PyTorch does not fuse across the
         # kernel boundary, so there is nothing to pin.
-        return f if fold else shift_down(f, 1)
+        return f if fold_shift else shift_down(f, 1)
 
     if blindspot:
-        if h == w:
-            # square: all four rotations ride one 4x batch; the derotated
-            # branches stay a LIST (the head kernel never builds the concat)
-            y4 = trunk(rotation_stack(xc))
-            parts = [rot90(y4[k * b : (k + 1) * b], -k) for k in range(4)]
-        else:
-            # non-square: rot0/rot180 share (H, W); rot90/rot270 share
-            # (W, H) — two batched trunk calls, same shared weights
-            ga = torch.cat([xc, rot90(xc, 2)], dim=0)
-            gb = torch.cat([rot90(xc, 1), rot90(xc, 3)], dim=0)
-            fa = trunk(ga)
-            fb = trunk(gb)
-            parts = [
-                fa[:b],
-                rot90(fb[:b], -1),
-                rot90(fa[b:], -2),
-                rot90(fb[b:], -3),
-            ]
+        # square: all four rotations ride one 4x batch; non-square:
+        # rot0/rot180 share (H, W), rot90/rot270 share (W, H) — two batched
+        # trunk calls, same shared weights. Each group is written once into
+        # one buffer of the trunk's layout.
+        groups = [(0, 1, 2, 3)] if h == w else [(0, 2), (1, 3)]
+        ys = [trunk(rotation_fold(xc, ks, dtype=compute_dtype,
+                                  memory_format=fmt)) for ks in groups]
     else:
-        parts = [
-            _branch(params, xc, shifted=False, compute_dtype=compute_dtype,
-                    conv_backend=conv_backend, conv_precision=conv_precision,
-                    decoder_mode=decoder_mode, emit_preact=use_fused_head)
-        ]
+        groups = [(0,)]
+        ys = [_branch(params, xc.to(compute_dtype, memory_format=fmt),
+                      shifted=False, compute_dtype=compute_dtype,
+                      conv_backend=conv_backend,
+                      conv_precision=conv_precision,
+                      decoder_mode=decoder_mode, emit_preact=use_fused_head)]
     if use_fused_head:
-        bsz, _, hh, ww = parts[0].shape
-        # parts are dec1b PRE-activations (emit_preact); the kernel
-        # applies their LeakyReLU internally
-        xs = [p.to(compute_dtype).permute(0, 2, 3, 1).reshape(-1, p.shape[1])
-              .contiguous() for p in parts]
+        # the derotated branches as (B*H*W, C) rows, one per branch (the
+        # head kernel never builds the concat); they are dec1b
+        # PRE-activations (emit_preact): the kernel applies their LeakyReLU
+        xs = rotation_unfold(ys, groups, rows=True)
         wa = _matrix(params["nin_a"]["w"], compute_dtype)
-        offs = np.cumsum([0] + [p.shape[1] for p in parts])
+        offs = np.cumsum([0] + [t.shape[1] for t in xs])
         was = [wa[o:e] for o, e in zip(offs[:-1], offs[1:])]
         out = nin_head(
             xs, was,
@@ -334,11 +336,10 @@ def apply(params: Params, x: torch.Tensor, *, blindspot: bool = True,
             _matrix(params["nin_c"]["w"], compute_dtype),
             params["nin_c"]["b"].float(),
         )
-        return out.reshape(bsz, hh, ww, -1)
+        return out.reshape(b, h, w, -1)
     # torch-ops head: nin_a/nin_b in the compute dtype; nin_c accumulates in
     # fp32 (matmul_acc_f32) so mu/Sigma leave the network as fp32
-    f = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    f = f.to(compute_dtype)
+    f = rotation_unfold(ys, groups)
     f = leaky_relu(conv2d(f, params["nin_a"]["w"], params["nin_a"]["b"],
                           out_dtype=compute_dtype, precision=conv_precision))
     f = leaky_relu(conv2d(f, params["nin_b"]["w"], params["nin_b"]["b"],

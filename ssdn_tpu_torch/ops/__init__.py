@@ -1,4 +1,11 @@
-from ssdn_tpu_torch.ops.rotation import rot90, rotation_stack, rotation_unstack
+from ssdn_tpu_torch.ops.rotation import (
+    rot90,
+    rotation_fold,
+    rotation_stack,
+    rotation_unfold,
+    rotation_unstack,
+    trunk_memory_format,
+)
 from ssdn_tpu_torch.ops.shifted import (
     conv2d,
     leaky_relu,
@@ -20,6 +27,9 @@ __all__ = [
     "shifted_upsample_concat_conv",
     "upsample_2x_nearest",
     "rot90",
+    "rotation_fold",
     "rotation_stack",
+    "rotation_unfold",
     "rotation_unstack",
+    "trunk_memory_format",
 ]

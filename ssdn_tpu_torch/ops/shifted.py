@@ -5,10 +5,14 @@ Every op here preserves the invariant
 
     output at row r depends only on input rows <= r.
 
-Layout: tensors are NCHW (PyTorch's logical order), kept in
-``torch.channels_last`` memory format by the model so that the hand-written
-kernels see NHWC-contiguous memory; conv weights are OIHW. The shift is a
-zero pad of the top rows before a VALID convolution (negative pads crop).
+Layout: tensors are NCHW (PyTorch's logical order); conv weights are
+OIHW. Every op here keeps its input's memory layout, forward and
+backward: the model hands the bf16 trunk channels_last (NHWC-dense)
+tensors, which cuDNN's tensor-core convs and the hand-written kernels
+read as they are, and the fp32 trunk contiguous NCHW ones
+(``ops.rotation.trunk_memory_format``). ``pixel_shuffle`` is written
+out for that reason. The shift is a zero pad of the top rows before a
+VALID convolution (negative pads crop).
 
 Precision contract (as ``_resolve_precision`` in the JAX package): fp32
 inputs compute in true fp32 — cuDNN's default TF32 convolutions keep only
@@ -237,6 +241,57 @@ def _collapse_upsample_kernel(w_up: torch.Tensor) -> torch.Tensor:
     return wc.reshape(4 * co, ci, 2, 3)
 
 
+class _PixelShuffle(torch.autograd.Function):
+    """``F.pixel_shuffle`` whose output, and whose input gradient, keep the
+    input's layout. On CUDA PyTorch's op permutes and reshapes, which
+    returns NCHW whatever the input's layout (the CPU kernel keeps
+    channels_last). One strided copy each way, as the op's own."""
+
+    @staticmethod
+    def forward(ctx, x, r):
+        n, c, h, w = x.shape
+        ctx.r, ctx.fmt = r, _memory_format(x)
+        out = torch.empty((n, c // (r * r), h * r, w * r), dtype=x.dtype,
+                          device=x.device, memory_format=ctx.fmt)
+        _phases(out, r).copy_(_channels(x, r))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.r
+        n, c, hr, wr = g.shape
+        dx = torch.empty((n, c * r * r, hr // r, wr // r), dtype=g.dtype,
+                         device=g.device, memory_format=ctx.fmt)
+        _channels(dx, r).copy_(_phases(g, r))
+        return dx, None
+
+
+def _memory_format(t: torch.Tensor) -> torch.memory_format:
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _channels(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, C*r*r, H, W), channels ordered (c, pr, pc) -> a view
+    (N, C, H, r, W, r) indexed [n, c, y, pr, x, pc]."""
+    n, c, h, w = x.shape
+    return x.view(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+
+
+def _phases(y: torch.Tensor, r: int) -> torch.Tensor:
+    """(N, C, H*r, W*r) -> the view (N, C, H, r, W, r): row y*r + pr and
+    column x*r + pc at [n, c, y, pr, x, pc]."""
+    n, c, hr, wr = y.shape
+    return y.view(n, c, hr // r, r, wr // r, r)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """``F.pixel_shuffle(x, r)`` in x's layout (channels_last stays
+    channels_last on every device, forward and backward)."""
+    return _PixelShuffle.apply(x, r)
+
+
 def shifted_upsample_concat_conv(
     h: torch.Tensor,
     skip: torch.Tensor,
@@ -266,7 +321,7 @@ def shifted_upsample_concat_conv(
     w_skip = w[:, cup:]
     up = _conv_valid(F.pad(h, (1, 1, 1, 0)),
                      _collapse_upsample_kernel(w_up).to(h.dtype), precision)
-    up = F.pixel_shuffle(up, 2)
+    up = pixel_shuffle(up, 2)
     skip_part = conv2d(skip.to(h.dtype), w_skip, None, shifted=True,
                        precision=precision)
     out = up + skip_part

@@ -13,6 +13,9 @@ costs one global read and a call when none does. A span is a
 device work under it, and a record in ``spans()``: a span on a thread that
 Python started, such as a Prefetcher worker, is in ``spans()`` only, as the
 profiler does not see it.
+
+``conv_layouts()`` counts the convolutions of a block by the memory layout
+of their operands: how often the trunk hands cuDNN NHWC-dense tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 @contextlib.contextmanager
@@ -169,3 +173,53 @@ def assert_finite_tree(tree, path: str = "") -> None:
             assert_finite_tree(v, f"{path}/{k}" if path else str(k))
     elif not bool(torch.isfinite(torch.as_tensor(tree)).all()):
         raise AssertionError(f"non-finite values at {path or '(root)'}")
+
+
+_CONV_OPS = {  # op -> the positions of its activation / gradient operands
+    torch.ops.aten.convolution.default: ("convolution", (0,)),
+    torch.ops.aten.convolution_backward.default: ("convolution_backward",
+                                                  (0, 1)),
+}
+LAYOUTS = ("channels_last", "nchw", "strided")
+
+
+class _ConvCensus(TorchDispatchMode):
+    def __init__(self, counts):
+        super().__init__()
+        self.counts = counts
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = _CONV_OPS.get(func)
+        if op is not None:
+            name, where = op
+            ts = [args[i] for i in where]
+            if all(t.is_contiguous(memory_format=torch.channels_last)
+                   for t in ts):
+                layout = "channels_last"
+            elif all(t.is_contiguous() for t in ts):
+                layout = "nchw"
+            else:
+                layout = "strided"
+            self.counts[name][layout] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def conv_layouts() -> Iterator[Dict[str, Dict[str, int]]]:
+    """Count the ``aten.convolution`` and ``aten.convolution_backward``
+    calls made inside the block, forward and backward (a test and operator
+    tool: it intercepts every op of the block, so no timed run uses it):
+
+        with conv_layouts() as n:
+            loss = step(); loss.backward()
+        n["convolution_backward"]["channels_last"]
+
+    A call counts as ``channels_last`` when every activation and gradient
+    operand (the input; the output's gradient and the input) is NHWC-dense,
+    as ``nchw`` when every one is NCHW-contiguous, else as ``strided``. A
+    tensor dense in both layouts (one channel, or 1x1 images) counts as
+    either. Weights are not read: PyTorch lays them out as the input."""
+    counts = {name: dict.fromkeys(LAYOUTS, 0)
+              for name, _ in _CONV_OPS.values()}
+    with _ConvCensus(counts):
+        yield counts

@@ -1002,3 +1002,74 @@ def test_sharded_tiling_at_world_size_one_on_the_card(nccl_group, arm,
     assert counts == {"lax": (0, 0), "head_pallas": (0, 1),
                       "conv_pallas": (24, 0)}[arm]
     np.testing.assert_allclose(out, whole, rtol=0, atol=1e-4)
+
+
+# ------------------------- the trunk's layout on the card -------------------------
+
+# trunk convs: enc0..enc6, two per fused decoder "a" layer, dec{5..1}b
+TRUNK_CONVS = 7 + 2 * 5 + 5
+
+
+def _conv_census(dtype, shape, backward):
+    """``debug.conv_layouts`` of one forward of the published widths (conv
+    lax, head pallas: K2' and K3 with grads, K2 without) on the card, and
+    with ``backward`` the gradients of every parameter."""
+    from ssdn_tpu_torch.utils import debug
+
+    params = bu.init_params(torch.Generator().manual_seed(0), 3, 9,
+                            device="cuda")
+    leaves = [t.requires_grad_(backward) for leaf in params.values()
+              for t in leaf.values()]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)
+                    ).cuda()
+    with debug.conv_layouts() as n, torch.set_grad_enabled(backward):
+        out = bu.apply(params, x, compute_dtype=dtype, head_backend="pallas")
+        if backward:
+            torch.autograd.grad(out.square().sum(), leaves)
+    torch.cuda.synchronize()
+    return n
+
+
+@pytest.mark.parametrize("dtype,shape,backward,layout,calls", [
+    (torch.bfloat16, (8, 64, 64, 3), True, "channels_last", TRUNK_CONVS),
+    (torch.bfloat16, (1, 1088, 1920, 3), False, "channels_last",
+     2 * TRUNK_CONVS),
+    (torch.float32, (8, 64, 64, 3), True, "nchw", TRUNK_CONVS),
+], ids=["bf16_train", "bf16_full_hd", "fp32_train"])
+def test_trunk_convs_see_the_dtype_layout_on_the_card(cuda, dtype, shape,
+                                                      backward, layout,
+                                                      calls):
+    """cuDNN gets channels_last activations and gradients at every bf16
+    trunk conv (a training step's forward and backward; a full-HD
+    request's two trunk calls), NCHW at every fp32 one. The census reads
+    the backward's convs on the autograd engine's device thread too."""
+    n = _conv_census(dtype, shape, backward)
+    want = dict.fromkeys(("channels_last", "nchw", "strided"), 0)
+    want[layout] = calls
+    assert n["convolution"] == want
+    assert n["convolution_backward"] == (want if backward else
+                                         dict.fromkeys(want, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pixel_shuffle_keeps_channels_last_on_the_card(cuda, dtype):
+    """``ops.shifted.pixel_shuffle`` returns channels_last, and a
+    channels_last input gradient, where ``F.pixel_shuffle`` on CUDA need
+    not; same bits as the library op both ways."""
+    import torch.nn.functional as F
+
+    from ssdn_tpu_torch.ops.shifted import pixel_shuffle
+
+    x0 = torch.randn(4, 384, 8, 12, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    xa = x0.clone().requires_grad_(True)
+    xb = x0.clone().requires_grad_(True)
+    got, ref = pixel_shuffle(xa, 2), F.pixel_shuffle(xb, 2)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ref)
+    g = torch.randn(ref.shape, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    got.backward(g)
+    ref.backward(g)
+    assert xa.grad.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(xa.grad, xb.grad)
