@@ -17,7 +17,7 @@ yardstick (``chip_smoke.head_library``: three ``addmm``) and the bound.
 taken out (``ABLATIONS``; their results are wrong: they are timed only) and
 times them in turns with the whole kernel: where the time goes, with no
 profiler of the kernel's insides on the machine. Every edit must match the
-source once (``tests/test_torch_k2_plan.py`` checks).
+source once (the CPU test ``test_probe_edits_match_the_source`` checks).
 
 ``--fp32`` does the same for the fp32 FMA kernel (``F32_VARIANTS``; with
 ``--ablations`` also ``F32_ABLATIONS``): each copy's registers and spills

@@ -20,8 +20,8 @@ committed kernel's bits, and times the copies in turns (forward order, then
 reverse): each launch's time, its TFLOP/s and its bound ((a1) the rows
 launch, (a2) dx, (b) the weight-grad partials), beside the twin and the
 library yardstick (the torch-ops head's autograd backward, TF32 off).
-Every edit must match the source once (``tests/test_torch_k3_plan.py``
-checks).
+Every edit must match the source once (the CPU test
+``test_probe_edits_match_the_source`` checks).
 
 ``--against DIR`` builds another checkout's ``csrc/nin_head_bwd.cu`` (e.g.
 the parent commit's tree) and, at the same two M in both dtypes, says

@@ -117,7 +117,7 @@ constexpr int NC_TC = 16;        // out's columns, padded
 constexpr int SMEM_LIMIT = 232448;
 constexpr int MAX_DEVICES = 64;
 
-// Block geometry (kernels/nin_head.py's k2_plan has the same numbers):
+// Block geometry (this launcher's alone; the wrapper checks widths only):
 // TC_WARPS warps of RW rows each, TC_TM rows per tile, Na in chunks of NCH
 // columns through a STAGES-deep weight ring, TC_MINB blocks per SM.
 constexpr int TC_WARPS = 8;
@@ -427,7 +427,7 @@ int launch_bf16(const TcArgs& a, cudaStream_t stream) {
 
 // ----------------------------- fp32 on the FMA pipes -----------------------------
 
-// Block geometry (kernels/nin_head.py's k2_plan has the same numbers): F_TM
+// Block geometry (this launcher's alone; the wrapper checks widths only): F_TM
 // rows per tile, Na in chunks of F_NCH columns, the K of layer a in slices of
 // F_KS input channels through a 2-stage ring, pre2 in passes of F_NBP
 // columns, out in groups of F_NCG columns, one block per SM.

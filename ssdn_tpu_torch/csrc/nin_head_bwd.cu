@@ -188,7 +188,7 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
 
 // --------------------------- fp32 (a) on the FMA pipes ---------------------------
 
-// Geometry (kernels/nin_head.py's k3_plan has the same numbers): R_TM rows
+// Geometry (this launcher's alone; the wrapper sizes buffers only): R_TM rows
 // per tile, K in slices of R_KS through a ring of R_STAGES (a1) or
 // DX_STAGES (a2), R_THREADS threads, one block per SM. (a1): pre2 in passes
 // of R_NBP columns of Nb, dh2's K (Nc) in groups of R_NCG, dh1 in chunks of
@@ -832,7 +832,7 @@ bwd_dx_fma_kernel(DxArgs a) {
 
 // ------------------ fp32 (b): weight-grad partials on the FMA pipes ------------------
 
-// Geometry (kernels/nin_head.py's k3_plan has the same numbers): output
+// Geometry (this launcher's alone; the wrapper sizes buffers only): output
 // tiles of 128 rows (p) by 128, 96 or 16 columns (q), by the product's Q;
 // a split's rows in (a)'s slices of R_KS, staged by (a)'s stage_b through
 // a ring of WF_STAGES, A [m][p] and B [m][q] as they lie in memory, both
@@ -1085,7 +1085,7 @@ reduce_splits_kernel(const float* partial, float* out, long long total,
 
 // ------------------ bf16 on the tensor cores: wgmma and TMA ------------------
 
-// Geometry (kernels/nin_head.py's k3_plan has the same shared bytes). (a):
+// Geometry (this launcher's alone; the wrapper sizes buffers only). (a):
 // a warpgroup's 64 rows per wgmma; pre2, dh2 and dpre2 in passes of TC_NB
 // columns of Nb, one wgmma each; dx_i in passes of TC_CB columns of C; h1 /
 // dpre1 in TMA boxes of 64 rows x TC_KB columns; one ring of RING_STAGES

@@ -24,12 +24,16 @@ CPU tensors, and only there:
 where autograd records, the K2 inference launch otherwise. Any M runs: the
 TPU's ``_pick_tile`` divisibility rule has no counterpart (the kernels mask
 a ragged tail).
+
+The launch geometry (tiles, rings, shared bytes, grids) is the ``.cu``
+launchers' alone. The wrappers check the operands and the widths the bf16
+kernels take, allocate the outputs and K3's buffers (``_k3_buffers``), and
+raise ``ValueError`` where a launcher refuses the widths before launching.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import Sequence
 
 import torch
@@ -61,133 +65,21 @@ _BWD_SIGNATURES = {
 _SPLIT_ROWS = 4096
 _MAX_SPLITS = 64
 _DTYPES = (torch.float32, torch.bfloat16)
-
-# K3's launch geometry; csrc/nin_head_bwd.cu uses the same numbers.
-SMEM_LIMIT = 232_448     # bytes of shared memory one H100 block may use
-# bf16 on wgmma and TMA. (a) rows: warpgroups of 64 rows, two per block
-# (one where two do not fit: Na 512), and one more that copies; pre2, dh2
-# and dpre2 in passes of 96 columns of Nb; h1 / dpre1 in TMA boxes of 64
-# rows x 64 columns; one 10-slot ring of 12 KB slots (Wb's and the Wa_i's
-# chunks); a window of Wc^T (96 x up to 64 columns), bb, the mbarriers;
-# 1 KB of alignment slack. (b) weight grads: items of 128 rows x 192
-# (dWa_i, dWb^T) or 32 (dWc) columns, a 5-stage ring of 40 KB.
-_TC_ROWS, _TC_NB, _TC_KB, _TC_NCW = 64, 96, 64, 64
-_TC_STAGES = 10
-_TC_SLOT = 2 * 96 * _TC_KB               # bytes of a ring slot
-_WG_STAGES, _WG_P, _WG_QA, _WG_QC = 5, 128, 192, 32
-_WG_SLOT = 2 * (2 * 64 * 64) + 192 // 64 * (2 * 64 * 64)
-_MAX_C_TC = 256          # (a) bf16: input channels
-_SKEW = 8                # bf16 elements added to every shared row (K2)
-# fp32 (a) on the FMA pipes, two launches: 128-row tiles, K in slices of
-# 32, 256 threads, one block per SM. (a1) pre2 in passes of 96 columns of
-# Nb, dh2's Nc in groups of 16, dh1 in chunks of 128 columns of Na, through a
-# 3-stage ring; (a2) dx in chunks of 128 columns of k C, through a 2-stage
-# ring. Shared floats: the ring (A slices of 32 columns, (a1) [row][k] with
-# rows padded by 4, (a2) [k][row] with rows of 128 + 4; B slices up to 128
-# wide) and, in (a1), the pass's dpre2 ([j][row]), g's group (two buffers,
-# [row][n], rows padded by 4), Wc^T's group, and h1's signs for dpre1's mask
-# (two buffers of one bit per row and column up to MAX_NA).
-_K3F_ROWS, _K3F_SLICE, _K3F_THREADS = 128, 32, 256
-_K3F_STAGES, _K3F_DX_STAGES = 3, 2
-_K3F_PASS, _K3F_GROUP, _K3F_CHUNK, _K3F_DX_CHUNK = 96, 16, 128, 128
-_K3F_LD = _K3F_ROWS + 4
-_K3F_B = _K3F_SLICE * _K3F_CHUNK
-_K3F_DX_SMEM = 4 * _K3F_DX_STAGES * (_K3F_SLICE * _K3F_LD + _K3F_B)
-_K3F_ROWS_SMEM = 4 * (_K3F_STAGES * (_K3F_ROWS * (_K3F_SLICE + 4) + _K3F_B)
-                      + _K3F_PASS * _K3F_LD
-                      + 2 * _K3F_ROWS * (_K3F_GROUP + 4)
-                      + _K3F_GROUP * _K3F_PASS) + 2 * _K3F_ROWS * MAX_NA // 8
-# fp32 (b) on the FMA pipes, one launch: output tiles of 128 rows by 128, 96
-# or 16 columns (by the product's Q: over 96, over 16, else), a split's rows
-# in stages of 32 through a 2-stage ring (A [m][p] and B [m][q] slices of 128
-# floats a row; 16 bytes more for two claimed item numbers), 256 threads,
-# two blocks per SM taking the (tile, split) work items in order. The k
-# branches' dWa_i are one product whose row tiles straddle branches.
-_K3W_TP, _K3W_ROWS, _K3W_STAGES, _K3W_THREADS, _K3W_LD = 128, 32, 2, 256, 128
-_K3W_BLOCKS = 2
-_H100_SMS = 132          # the H100 SXM's SMs: (b)'s fp32 grid is at most 2 x 132
-_K3W_SMEM = 4 * _K3W_STAGES * 2 * _K3W_ROWS * _K3W_LD + 16
-
-# K2's launch geometry; csrc/nin_head.cu uses the same numbers. bf16 (tensor
-# cores): 8 warps of 16 rows each, one block per SM, Na in chunks of 32
-# columns through a 2-stage weight ring. The model's widths (k 4, C 96, Na
-# 384, Nb 96) run an instantiation with them fixed at compile time, every
-# other width a generic one.
-_K2_WARPS, _K2_ROWS_PER_WARP, _K2_CHUNK, _K2_STAGES = 8, 16, 32, 2
-_K2_MODEL = (4, 96, 384, 96)  # k, C, Na, Nb
-_MAX_C_K2 = 256              # bf16: input channels
-_MAX_NB_K2 = 128             # bf16: pre2's columns, held in registers
-_NC_K2 = 16                  # bf16: out's columns, padded
-# fp32 (FMA pipes): 128-row tiles, Na in chunks of 128 columns, layer a's K
-# in slices of 32 channels through a 2-stage ring, pre2 in passes of 96
-# columns (its registers), out in groups of 16 columns; 256 threads, one
-# block per SM. Shared floats: x slices and Wa_i slices (2 stages each),
-# the h1 chunk / h2 ([column][row], rows padded by 4), Wb[chunk, pass],
-# Wc[pass, group].
-_F32_ROWS, _F32_CHUNK, _F32_SLICE, _F32_STAGES = 128, 128, 32, 2
-_F32_PASS, _F32_GROUP, _F32_THREADS = 96, 16, 256
-_F32_LD = _F32_ROWS + 4
-_F32_SMEM = 4 * (_F32_STAGES * _F32_SLICE * (_F32_LD + _F32_CHUNK)
-                 + _F32_CHUNK * _F32_LD + _F32_CHUNK * _F32_PASS
-                 + _F32_PASS * _F32_GROUP)
+# The widths the bf16 tensor-core kernels take (beyond multiples of 8).
+_MAX_C_K2 = 256              # K2: input channels
+_MAX_NB_K2 = 128             # K2: pre2's columns, held in registers
+_NC_K2 = 16                  # K2: out's columns, padded
+_MAX_C_K3 = 256              # K3 (a): input channels
+# What a launcher returns for widths or operands it does not take
+# (cudaErrorInvalidValue), before it launches anything.
+_REFUSED = 1
 
 
-@dataclasses.dataclass(frozen=True)
-class K2Plan:
-    """What one K2/K2' launch needs: the instantiation ("fma" for fp32;
-    bf16: "fixed" at the model's widths, else "generic"), rows per tile,
-    row tiles, Na's columns per chunk and chunks per tile, the weight
-    ring's stages, passes over Nb (fp32: 96 columns of pre2 per pass),
-    threads and blocks per SM (the grid is min(tiles, SMs x blocks per SM),
-    persistent blocks), the shared bytes per block, and the bytes of Wa_i
-    and Wb the blocks stream from L2 per launch (each tile reads them once
-    per pass; Wc, read once per block, aside)."""
-    instantiation: str
-    rows_per_block: int
-    row_tiles: int
-    chunk: int
-    chunks: int
-    stages: int
-    passes: int
-    threads: int
-    blocks_per_sm: int
-    smem: int
-    weight_bytes: int
-
-
-def k2_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
-            dtype: torch.dtype) -> K2Plan:
-    """K2's launch plan for M rows, k branches of C channels, the head's
-    widths Na, Nb, Nc and x's dtype: the numbers the wrapper checks with,
-    and that ``csrc/nin_head.cu`` computes the same way."""
-    if dtype != torch.bfloat16:
-        rows, passes = _F32_ROWS, _cdiv(nb, _F32_PASS)
-        tiles = _cdiv(m, rows)
-        return K2Plan("fma", rows, tiles, _F32_CHUNK, _cdiv(na, _F32_CHUNK),
-                      _F32_STAGES, passes, _F32_THREADS, 1, _F32_SMEM,
-                      4 * tiles * (passes * k * c * na + na * nb))
-    rows, chunk = _K2_ROWS_PER_WARP * _K2_WARPS, _K2_CHUNK
-    p16 = lambda v: _cdiv(v, 16) * 16
-    cp, nbp = p16(c), p16(nb)
-    # bf16 elements: x tiles, the ring (Wa_i chunks | Wb chunk), the warps'
-    # h1 chunk / h2 rows, Wc; every shared row padded by _SKEW
-    smem = 2 * (k * rows * (cp + _SKEW)
-                + _K2_STAGES * (k * cp * (chunk + _SKEW) + chunk * (nbp + _SKEW))
-                + rows * (max(chunk, nbp) + _SKEW) + nbp * (_NC_K2 + _SKEW))
-    inst = "fixed" if (k, c, na, nb) == _K2_MODEL else "generic"
-    tiles = _cdiv(m, rows)
-    return K2Plan(inst, rows, tiles, chunk, _cdiv(na, chunk), _K2_STAGES, 1,
-                  32 * _K2_WARPS, 1, smem, 2 * tiles * (k * c * na + na * nb))
-
-
-def _check_k2_launch(plan: K2Plan, tensors, c, na, nb, nc, dt) -> None:
-    """What K2 takes beyond ``_check``: shared memory within one block's
-    limit; fp32 (FMA): any widths, any alignment; bf16 (tensor cores): C,
-    Na, Nb multiples of 8, C <= 256, Nb <= 128, Nc <= 16, and x_i, Wa_i,
-    Wb on 16-byte boundaries (their rows move in 16-byte copies)."""
-    if plan.smem > SMEM_LIMIT:
-        raise ValueError(f"K2 needs {plan.smem} bytes of shared memory per "
-                         f"block, more than {SMEM_LIMIT}")
+def _check_k2_widths(tensors, c, na, nb, nc, dt) -> None:
+    """What K2 takes beyond ``_check``: fp32 (FMA) any widths, any
+    alignment; bf16 (tensor cores) C, Na, Nb multiples of 8, C <= 256,
+    Nb <= 128, Nc <= 16, and x_i, Wa_i, Wb on 16-byte boundaries (their
+    rows move in 16-byte copies)."""
     if dt != torch.bfloat16:
         return
     if c % 8 or na % 8 or nb % 8:
@@ -203,183 +95,54 @@ def _check_k2_launch(plan: K2Plan, tensors, c, na, nb, nc, dt) -> None:
         raise ValueError("bf16 K2 operands must start on 16-byte boundaries")
 
 
-@dataclasses.dataclass(frozen=True)
-class K3RowLaunch:
-    """One of fp32 K3 (a)'s two launches ("rows": pre2, dh2, dpre2, dh1 and
-    dpre1; "dx": dx_i): rows per tile and row tiles (the grid is min(tiles,
-    SMs x blocks per SM), persistent blocks), N's columns per chunk (rows:
-    of Na; dx: of k C) and chunks per tile, K's slice and the ring's stages,
-    passes over Nb, threads, blocks per SM, shared bytes per block, and the
-    weight bytes the blocks stream from L2 per call (each tile reads its
-    weights once; rows: Wb and Wb^T, dx: the k Wa_i^T; Wc aside)."""
-    kernel: str
-    rows_per_tile: int
-    row_tiles: int
-    chunk: int
-    chunks: int
-    slice: int
-    stages: int
-    passes: int
-    threads: int
-    blocks_per_sm: int
-    smem: int
-    weight_bytes: int
-
-
-@dataclasses.dataclass(frozen=True)
-class K3WgradLaunch:
-    """fp32 K3 (b), the weight-grad partials: its products, each (name, P,
-    Q, tile rows, tile columns, tiles) with its bias sums as one more output
-    row ("dWa": the k branches' [lrelu x_0 | ..]^T dpre1, k C x Na, whose
-    row tiles straddle branches; "dWb": h1^T dpre2; "dWc": h2^T g), rows per
-    stage and the ring's stages, threads, blocks per SM, shared bytes per
-    block, the work items (tiles x splits), the persistent blocks that
-    take them in order (min(items, blocks per SM x SMs), counted with the
-    H100 SXM's 132 SMs; the launcher reads the device's count) and the
-    bytes the items stream from L2 per call (each reads its tile's columns
-    of A and of B over its split's rows)."""
-    products: tuple
-    stage_rows: int
-    stages: int
-    threads: int
-    blocks_per_sm: int
-    smem: int
-    items: int
-    blocks: int
-    l2_bytes: int
-
-
-def _k3_wgrad_launch(m: int, c: int, na: int, nb: int, nc: int, k: int,
-                     splits: int) -> K3WgradLaunch:
-    """fp32 K3 (b)'s launch for M rows in ``splits`` row splits, k branches
-    of C channels and the head's widths Na, Nb, Nc (``csrc/nin_head_bwd.cu``
-    computes the same tiles)."""
-    products, tiles, per_row = [], 0, 0
-    for name, p, q in (("dWa", k * c, na), ("dWb", na, nb), ("dWc", nb, nc)):
-        w = 16 if q <= 16 else 96 if q <= 96 else 128
-        tp_, tq = _cdiv(p, _K3W_TP), _cdiv(q, w)
-        products.append((name, p, q, _K3W_TP, w, tp_ * tq))
-        tiles += tp_ * tq
-        per_row += tq * p + tp_ * q
-    items = tiles * splits
-    return K3WgradLaunch(tuple(products), _K3W_ROWS, _K3W_STAGES, _K3W_THREADS,
-                         _K3W_BLOCKS, _K3W_SMEM, items,
-                         min(items, _K3W_BLOCKS * _H100_SMS), 4 * m * per_row)
-
-
-def _tc_rows_smem(na: int, nb: int, ncp: int, warpgroups: int) -> int:
-    """bf16 (a)'s shared bytes (``csrc/nin_head_bwd.cu``'s ``tc_layout``):
-    the tile's h1 boxes, the ring, a window of Wc^T (96 rows x up to 64
-    columns of Nc rounded up to 16), bb (Nb in whole passes of 96), the
-    mbarriers and the alignment slack."""
-    return (_cdiv(na, _TC_KB) * warpgroups * 2 * _TC_ROWS * _TC_KB
-            + _TC_STAGES * _TC_SLOT + _TC_NB * min(ncp, _TC_NCW) * 2
-            + _cdiv(nb, _TC_NB) * _TC_NB * 4 + (2 + 2 * _TC_STAGES) * 8 + 1024)
-
-
-@dataclasses.dataclass(frozen=True)
-class K3Plan:
-    """What one K3 launch needs: (a) rows per tile, row tiles and shared
-    bytes per block (fp32: the larger of its two launches, described in
-    ``row_launches``; bf16: 64 rows per warpgroup, two where they fit), (b)
-    output tiles per split and shared bytes (fp32: the tiles x splits work
-    items of ``wgrad_launch``; bf16: its work items per split), the
-    workspace (elements of x's dtype: h2, dpre2, dpre1 and, in bf16, g
-    rounded to bf16 and padded to 16 columns), the flat fp32 weight-grad
-    sizes and the partial sums (floats; in fp32 one more, (b)'s work-item
-    counter)."""
-    splits: int
-    rows_per_block: int
-    row_blocks: int
-    rows_smem: int
-    wgrad_tiles: int
-    wgrad_smem: int
-    workspace: int
-    dw_sizes: tuple
-    partial: int
-    row_launches: tuple = ()
-    wgrad_launch: K3WgradLaunch | None = None
-
-    @property
-    def wgrad_blocks(self) -> int | None:
-        """fp32 (b)'s persistent blocks launched (``wgrad_launch.blocks``);
-        None in bf16, whose launcher sizes its grid by the device's SMs."""
-        return None if self.wgrad_launch is None else self.wgrad_launch.blocks
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def k3_plan(m: int, c: int, na: int, nb: int, nc: int, k: int,
-            dtype: torch.dtype) -> K3Plan:
-    """K3's launch plan for M rows, k branches of C channels, the head's
-    widths Na, Nb, Nc and x's dtype: the numbers the wrapper allocates and
-    checks with, and that ``csrc/nin_head_bwd.cu`` computes the same way."""
-    splits = bwd_splits(m)
-    # flat fp32 output: [dWa_0 | dba | dWa_1.. | dWb | dbb | dWc | dbc]
-    sizes = (c * na, na, *[c * na] * (k - 1), na * nb, nb, nb * nc, nc)
-    if dtype == torch.bfloat16:
-        ncp = _cdiv(nc, 16) * 16
-        # two warpgroups where they fit and Wc^T is one window (Nb <= 96,
-        # Nc <= 64); else one, over passes of Nb and windows of Nc
-        wide = nb > _TC_NB or ncp > _TC_NCW
-        wgs = 1 if wide or _tc_rows_smem(na, nb, ncp, 2) > SMEM_LIMIT else 2
-        rows, smem = _TC_ROWS * wgs, _tc_rows_smem(na, nb, ncp, wgs)
-        # (b)'s items per split: dWa_i's and dWb^T's of 128 x 192, dWc's of
-        # 128 x 32, and dbc's column sums
-        qa, pb = _cdiv(na, _WG_QA), _cdiv(nb, _WG_P)
-        tiles = (k * _cdiv(c, _WG_P) + pb) * qa + pb * _cdiv(ncp, _WG_QC) + 1
-        wsmem = _WG_STAGES * (_WG_SLOT + 16) + 1024
-        ws = m * (2 * nb + na + ncp)
-        launches, wlaunch = (), None
-    else:
-        rows = _K3F_ROWS
-        n_tiles = _cdiv(m, rows)
-        launches = (
-            K3RowLaunch("rows", rows, n_tiles, _K3F_CHUNK,
-                        _cdiv(na, _K3F_CHUNK), _K3F_SLICE, _K3F_STAGES,
-                        _cdiv(nb, _K3F_PASS), _K3F_THREADS, 1, _K3F_ROWS_SMEM,
-                        4 * n_tiles * 2 * na * nb),
-            K3RowLaunch("dx", rows, n_tiles, _K3F_DX_CHUNK,
-                        _cdiv(k * c, _K3F_DX_CHUNK), _K3F_SLICE, _K3F_DX_STAGES,
-                        1, _K3F_THREADS, 1, _K3F_DX_SMEM,
-                        4 * n_tiles * k * c * na))
-        smem = max(launch.smem for launch in launches)
-        wlaunch = _k3_wgrad_launch(m, c, na, nb, nc, k, splits)
-        tiles = sum(prod[-1] for prod in wlaunch.products)
-        wsmem = wlaunch.smem
-        ws = m * (2 * nb + na)
-    return K3Plan(splits=splits, rows_per_block=rows,
-                  row_blocks=_cdiv(m, rows), rows_smem=smem,
-                  wgrad_tiles=tiles, wgrad_smem=wsmem,
-                  workspace=ws, dw_sizes=sizes,
-                  partial=splits * sum(sizes) + (wlaunch is not None),
-                  row_launches=launches, wgrad_launch=wlaunch)
-
-
-def _check_k3_launch(plan: K3Plan, tensors, c, na, nb, dt) -> None:
-    """What the kernels take beyond ``_check``: Na <= ``MAX_NA``, shared
-    memory within one block's limit (fp32: fixed, any widths and
-    alignment) and, for the bf16 tensor-core kernels, widths C, Na, Nb
-    that are multiples of 8 and operands on 16-byte boundaries (TMA moves
-    their rows), and C <= ``_MAX_C_TC``."""
+def _check_k3_widths(tensors, c, na, nb, dt) -> None:
+    """What K3 takes beyond ``_check``: Na <= ``MAX_NA`` (both dtypes;
+    fp32 any other width and alignment) and, for the bf16 tensor-core
+    kernels, C, Na, Nb multiples of 8, C <= 256 and operands on 16-byte
+    boundaries (TMA moves their rows)."""
     if na > MAX_NA:
         raise ValueError(f"K3 supports at most {MAX_NA} layer-a columns, "
                          f"got {na}")
-    if plan.rows_smem > SMEM_LIMIT:
-        raise ValueError(f"K3 needs {plan.rows_smem} bytes of shared memory "
-                         f"per block, more than {SMEM_LIMIT}")
     if dt != torch.bfloat16:
         return
     if c % 8 or na % 8 or nb % 8:
         raise ValueError(f"bf16 K3 takes C, Na, Nb in multiples of 8, got "
                          f"{c}, {na}, {nb}")
-    if c > _MAX_C_TC:
-        raise ValueError(f"bf16 K3 takes at most {_MAX_C_TC} input channels, "
+    if c > _MAX_C_K3:
+        raise ValueError(f"bf16 K3 takes at most {_MAX_C_K3} input channels, "
                          f"got {c}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("bf16 K3 operands must start on 16-byte boundaries")
+
+
+def _k3_buffers(m: int, c: int, na: int, nb: int, nc: int, k: int,
+                dtype: torch.dtype) -> tuple[int, int, tuple]:
+    """The buffers K3's wrapper allocates and ``csrc/nin_head_bwd.cu``'s
+    launcher carves up, for M rows, k branches of C channels, the head's
+    widths Na, Nb, Nc and x's dtype: (the workspace, in elements of x's
+    dtype: h2, dpre2, dpre1 and, in bf16, g rounded to bf16 and padded to
+    16 columns; the partial sums, in floats: ``bwd_splits(M)`` copies of
+    the flat output and, in fp32, one more, (b)'s work-item counter; the
+    flat fp32 output's sizes, [dWa_0 | dba | dWa_1.. | dWb | dbb | dWc |
+    dbc])."""
+    sizes = (c * na, na, *[c * na] * (k - 1), na * nb, nb, nb * nc, nc)
+    bf16 = dtype == torch.bfloat16
+    ncp = -(-nc // 16) * 16 if bf16 else 0
+    return (m * (2 * nb + na + ncp), bwd_splits(m) * sum(sizes) + (not bf16),
+            sizes)
+
+
+def _check_launch(err: int, kernel: str, dt, k, c, na, nb, nc) -> None:
+    """Raise for a launcher's non-zero return: ``ValueError`` where it
+    refused the widths or operands before launching (its tiles exceed a
+    block's shared memory, or a width rule), else ``RuntimeError``."""
+    if err == _REFUSED:
+        dtype = "bf16" if dt == torch.bfloat16 else "fp32"
+        raise ValueError(f"{kernel}'s launcher refuses {dtype} at k {k}, C "
+                         f"{c}, Na {na}, Nb {nb}, Nc {nc} (shared memory "
+                         f"per block or a width rule)")
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -490,8 +253,7 @@ def nin_head_fwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     k = len(xs)
     m, c = x0.shape
     na, nb, nc = was[0].shape[1], wb.shape[1], wc.shape[1]
-    plan = k2_plan(m, c, na, nb, nc, k, x0.dtype)
-    _check_k2_launch(plan, (*xs, *was, wb), c, na, nb, nc, x0.dtype)
+    _check_k2_widths((*xs, *was, wb), c, na, nb, nc, x0.dtype)
     lib = _build.load("nin_head", _SIGNATURES)
     out = torch.empty((m, nc), dtype=torch.float32, device=x0.device)
     h1 = (torch.empty((m, na), dtype=x0.dtype, device=x0.device)
@@ -507,8 +269,7 @@ def nin_head_fwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
             k, m, c, na, nb, nc, SLOPE, int(x0.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(f"K2 nin_head_fwd launch failed: CUDA error {err}")
+    _check_launch(err, "K2 nin_head_fwd", x0.dtype, k, c, na, nb, nc)
     global launches, launches_save_h1
     if save_h1:
         launches_save_h1 += 1
@@ -546,14 +307,13 @@ def nin_head_bwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
     m, c = x0.shape
     na, nb, nc = was[0].shape[1], wb.shape[1], wc.shape[1]
     dev, dt = x0.device, x0.dtype
-    plan = k3_plan(m, c, na, nb, nc, k, dt)
-    _check_k3_launch(plan, (*xs, *was, h1, wb, wc), c, na, nb, dt)
+    _check_k3_widths((*xs, *was, h1, wb, wc), c, na, nb, dt)
     lib = _build.load("nin_head_bwd", _BWD_SIGNATURES)
     dxs = [torch.empty_like(x) for x in xs]
-    sizes = plan.dw_sizes
+    n_ws, n_partial, sizes = _k3_buffers(m, c, na, nb, nc, k, dt)
     dw = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    ws = torch.empty(plan.workspace, dtype=dt, device=dev)
-    partial = torch.empty(plan.partial, dtype=torch.float32, device=dev)
+    ws = torch.empty(n_ws, dtype=dt, device=dev)
+    partial = torch.empty(n_partial, dtype=torch.float32, device=dev)
     # the fp32 kernels stage slices of transposed weights (Wa_i^T for dx_i,
     # Wb^T for dh1); the bf16 kernels read Wa_i and Wb as they are (wgmma
     # reads either major order from shared memory), so they take no copies
@@ -572,12 +332,11 @@ def nin_head_bwd(xs: Sequence[torch.Tensor], was: Sequence[torch.Tensor],
             bb.data_ptr(), wc.data_ptr(),
             g.data_ptr(), *[d.data_ptr() for d in dxs], *pad,
             dw.data_ptr(), ws.data_ptr(), partial.data_ptr(),
-            k, m, c, na, nb, nc, plan.splits, SLOPE,
+            k, m, c, na, nb, nc, bwd_splits(m), SLOPE,
             int(dt == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(f"K3 nin_head_bwd launch failed: CUDA error {err}")
+    _check_launch(err, "K3 nin_head_bwd", dt, k, c, na, nb, nc)
     global launches_bwd
     launches_bwd += 1
     parts = list(torch.split(dw, sizes))

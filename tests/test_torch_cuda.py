@@ -373,14 +373,17 @@ def test_k2_bf16_narrow_widths_match_twin(cuda, m, k, widths, save_h1):
 
 def test_k2_bf16_refuses_what_it_does_not_take(cuda):
     """bf16 K2 raises, and launches nothing, for widths that are not
-    multiples of 8, C over its limit, Nc over 16 and operands off a 16-byte
-    boundary."""
+    multiples of 8, C over its limit, Nc over 16, operands off a 16-byte
+    boundary and widths whose tiles exceed a block's shared memory (k 4 of
+    C 128 at the model's Na and Nb: the launcher refuses them)."""
     before = (K2.launches, K2.launches_save_h1)
     bf = torch.bfloat16
-    for widths, n_out, match in ((dict(c=20, na=72, nb=24), 3, "multiples of 8"),
-                                 (dict(c=264, na=72, nb=24), 3, "input channels"),
-                                 (dict(c=40, na=72, nb=24), 17, "Nc <= 16")):
-        args = _k2_operands(3, 64, 1, n_out, bf, **widths)
+    for k, widths, n_out, match in (
+            (1, dict(c=20, na=72, nb=24), 3, "multiples of 8"),
+            (1, dict(c=264, na=72, nb=24), 3, "input channels"),
+            (1, dict(c=40, na=72, nb=24), 17, "Nc <= 16"),
+            (4, dict(c=128), 10, "launcher refuses bf16 at k 4, C 128")):
+        args = _k2_operands(3, 64, k, n_out, bf, **widths)
         for save_h1 in (False, True):
             with pytest.raises(ValueError, match=match):
                 K2.nin_head_fwd(*args, save_h1=save_h1)
@@ -666,10 +669,17 @@ def test_k3_fp32_is_bitwise_repeatable(cuda):
 
 def test_k3_bf16_refuses_what_it_does_not_take(cuda):
     """bf16 K3 raises, and launches nothing, for widths that are not
-    multiples of 8 and for operands off a 16-byte boundary."""
+    multiples of 8, for operands off a 16-byte boundary and for widths
+    whose tiles exceed a block's shared memory (Na 512 with Nb 12,000:
+    bb's floats beside h1's boxes and the ring; the launcher refuses
+    them)."""
     before = K2.launches_bwd
     args = _k3_operands(3, 64, 1, 3, torch.bfloat16, c=20, na=72, nb=24)
     with pytest.raises(ValueError, match="multiples of 8"):
+        K2.nin_head_bwd(*args)
+    args = _k3_operands(3, 64, 4, 10, torch.bfloat16, na=K2.MAX_NA, nb=12_000)
+    with pytest.raises(ValueError, match="launcher refuses bf16 at k 4, C 96, "
+                                         "Na 512, Nb 12000"):
         K2.nin_head_bwd(*args)
     xs, was, h1, wb, bb, wc, g = _k3_operands(3, 64, 1, 3, torch.bfloat16)
     off = torch.empty(64 * 96 + 1, dtype=torch.bfloat16, device="cuda")[1:]

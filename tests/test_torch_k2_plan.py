@@ -1,12 +1,12 @@
-"""K2/K2' (the fused head's forward) on the CPU: the launch plan
-(``kernels.nin_head.k2_plan``) and the checks the wrapper runs before a
-launch, the numbers that ``csrc/nin_head.cu`` computes the same way; the
-twin against the JAX package's ``_fwd_call`` in interpret mode at widths
-the bf16 tensor-core kernel pads and at channel counts the fp32 FMA
-kernel moves in 4-byte pieces; the probe's textual edits of the
-source; and the kernel build's cache key, which must change with any
-header the sources include. The kernels themselves
-run on the card (``tests/test_torch_cuda.py``)."""
+"""K2/K2' (the fused head's forward) on the CPU: the width rules the
+wrapper checks before a launch (the launch geometry and its shared-memory
+limit are ``csrc/nin_head.cu``'s alone, and its refusals are tested on the
+card); the twin against the JAX package's ``_fwd_call`` in interpret mode
+at widths the bf16 tensor-core kernel pads, at its widest Na, Nb and Nc,
+and at channel counts the fp32 FMA kernel moves in 4-byte pieces; the
+probe's textual edits of the source; and the kernel build's cache key,
+which must change with any header the sources include. The kernels
+themselves run on the card (``tests/test_torch_cuda.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,65 +24,13 @@ NARROW = {"c40-na72-nb24-nc3": dict(c=40, na=72, nb=24, nc=3, k=4),
           "c16-na32-nb16-nc9": dict(c=16, na=32, nb=16, nc=9, k=4)}
 
 
-def _plan(m, dtype, c, na, nb, nc, k):
-    return K2.k2_plan(m, c, na, nb, nc, k, dtype)
-
-
-@pytest.mark.parametrize("dtype", [BF16, F32])
-@pytest.mark.parametrize("na", [384, K2.MAX_NA])
-def test_shared_memory_fits_one_block(dtype, na):
-    plan = _plan(1_572_864, dtype, **dict(MODEL, na=na))
-    assert plan.smem <= K2.SMEM_LIMIT
-    if dtype == F32:
-        # floats: x slices 2 x 32 x (128 + 4), Wa_i slices 2 x 32 x 128, the
-        # h1 chunk / h2 128 x (128 + 4), Wb chunk 128 x 96, Wc 96 x 16;
-        # walking Na in chunks, it does not grow with Na
-        assert plan.instantiation == "fma"
-        assert plan.smem == 4 * (2 * 32 * 132 + 2 * 32 * 128 + 128 * 132
-                                 + 128 * 96 + 96 * 16)
-    elif na == 384:
-        # x tiles 4 x 128 x (96 + 8), ring 2 x (Wa_i chunks 4 x 96 x (32 + 8)
-        # | Wb chunk 32 x (96 + 8)), h1 chunk / h2 rows 128 x (96 + 8), Wc
-        # 96 x (16 + 8): bf16 elements
-        assert plan.instantiation == "fixed"
-        assert plan.smem == 2 * (4 * 128 * 104 + 2 * (4 * 96 * 40 + 32 * 104)
-                                 + 128 * 104 + 96 * 24)
-    else:
-        assert plan.instantiation == "generic"  # other widths: run-time widths
-
-
-def test_bf16_plan_fits_one_block_per_sm():
-    plan = _plan(1_572_864, BF16, **MODEL)
-    # the H100 SM's 228 KB of shared memory, 1 KB reserved per block
-    assert plan.blocks_per_sm * (plan.smem + 1024) <= 228 * 1024
-    assert plan.threads == 256 and plan.rows_per_block == 8 * 16
-    assert plan.chunks * 32 == 384
-
-
-@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 4133])
-def test_row_tiles_at_ragged_m(m):
-    bf = _plan(m, BF16, **MODEL)
-    assert bf.rows_per_block == 128 and bf.row_tiles == -(-m // 128)
-    f32 = _plan(m, F32, **MODEL)
-    assert f32.rows_per_block == 128 and f32.row_tiles == -(-m // 128)
-
-
-@pytest.mark.parametrize("widths", list(NARROW.values()), ids=list(NARROW))
-def test_narrow_widths_run_the_generic_instantiation(widths):
-    plan = _plan(1000, BF16, **widths)
-    assert plan.instantiation == "generic" and plan.row_tiles == 8
-    c, na, nb = widths["c"], widths["na"], widths["nb"]
-    cp, nbp = -(-c // 16) * 16, -(-nb // 16) * 16
-    assert plan.chunks == -(-na // 32)
-    assert plan.smem == 2 * (4 * 128 * (cp + 8)
-                             + 2 * (4 * cp * 40 + 32 * (nbp + 8))
-                             + 128 * (max(32, nbp) + 8) + nbp * 24)
+def _check(w, tensors, dt):
+    K2._check_k2_widths(tensors, w["c"], w["na"], w["nb"], w["nc"], dt)
 
 
 def test_launch_checks():
     t = torch.zeros(16, dtype=BF16)
-    check = lambda w, tensors=(t,), dt=BF16: K2._check_k2_launch(
-        _plan(64, dt, **w), tensors, w["c"], w["na"], w["nb"], w["nc"], dt)
+    check = lambda w, tensors=(t,), dt=BF16: _check(w, tensors, dt)
     narrow = NARROW["c40-na72-nb24-nc3"]
     check(narrow)  # valid
     check(dict(MODEL, na=1024))  # bf16 walks Na in chunks: no MAX_NA
@@ -101,49 +49,22 @@ def test_launch_checks():
         check(narrow, (t[1:],))
     # fp32 walks Na in chunks too: MAX_NA binds K3 only
     check(dict(MODEL, na=K2.MAX_NA + 8), (t.float(),), F32)
-    with pytest.raises(ValueError, match="shared memory"):
-        check(dict(MODEL, c=128))  # four 128-channel x tiles and the ring
 
 
-# ------------------- the fp32 FMA kernel's plan -------------------
-
-FP32_WIDTHS = {"model": MODEL, "max-na": dict(MODEL, na=K2.MAX_NA), **NARROW}
-
-
-@pytest.mark.parametrize("widths", list(FP32_WIDTHS.values()),
-                         ids=list(FP32_WIDTHS))
-def test_fp32_plan_chunks_and_stages(widths):
-    """128-row tiles, Na in chunks of 128 columns (a part-filled last
-    chunk at 72 and 32), a 2-stage ring, one pass over Nb <= 96."""
-    plan = _plan(4133, F32, **widths)
-    assert (plan.instantiation, plan.rows_per_block, plan.row_tiles) == (
-        "fma", 128, 33)
-    assert plan.chunk == 128 and plan.chunks == -(-widths["na"] // 128)
-    assert plan.stages == 2 and plan.passes == 1
-    assert plan.smem == _plan(1, F32, **MODEL).smem  # fixed geometry
-
-
-def test_fp32_plan_fits_one_block_per_sm():
-    plan = _plan(1_572_864, F32, **MODEL)
-    # the H100 SM's 228 KB of shared memory, 1 KB reserved per block
-    assert plan.smem <= K2.SMEM_LIMIT
-    assert plan.blocks_per_sm * (plan.smem + 1024) <= 228 * 1024
-    assert plan.threads == 256 and plan.blocks_per_sm == 1
-
-
-@pytest.mark.parametrize("m,tiles,gb", [(1_572_864, 12_288, 9.06),
-                                        (393_216, 3_072, 2.26)])
-def test_fp32_weight_stream_per_launch(m, tiles, gb):
-    """Each 128-row tile streams Wa_i and Wb from L2 once (737,280 bytes at
-    the model's widths): 9.06 GB per batch-384 step and 2.26 per 768x512
-    request, where 32-row tiles took four times as much (36.24 GB per
-    step)."""
-    plan = _plan(m, F32, **MODEL)
-    per_tile = 4 * (4 * 96 * 384 + 384 * 96)
-    assert per_tile == 737_280 and plan.row_tiles == tiles
-    assert plan.weight_bytes == tiles * per_tile
-    assert round(plan.weight_bytes / 1e9, 2) == gb
-    assert plan.weight_bytes * 4 == -(-m // 32) * per_tile  # 32-row tiles
+def test_launcher_refusals_are_value_errors():
+    """A launcher's cudaErrorInvalidValue (1), returned before it launches
+    (its tiles exceed a block's shared memory, or a width rule), raises
+    ValueError naming the kernel, the dtype and the widths; any other
+    error RuntimeError; 0 nothing."""
+    K2._check_launch(0, "K2 nin_head_fwd", BF16, 4, 96, 384, 96, 10)
+    with pytest.raises(ValueError, match="K2 nin_head_fwd's launcher refuses "
+                                         "bf16 at k 4, C 128, Na 384, Nb 96, "
+                                         "Nc 10"):
+        K2._check_launch(1, "K2 nin_head_fwd", BF16, 4, 128, 384, 96, 10)
+    with pytest.raises(ValueError, match="refuses fp32 at k 1"):
+        K2._check_launch(1, "K3 nin_head_bwd", F32, 1, 3, 512, 96, 10)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        K2._check_launch(700, "K3 nin_head_bwd", BF16, 4, 96, 384, 96, 10)
 
 
 @pytest.mark.parametrize("widths", [
@@ -152,14 +73,11 @@ def test_fp32_weight_stream_per_launch(m, tiles, gb):
     dict(NARROW["c40-na72-nb24-nc3"], k=1)],
     ids=["c3", "c99", "na520", "na1024", "nb200-nc40", "nc17", "narrow-k1"])
 def test_fp32_takes_every_width(widths):
-    """No width is refused in fp32 (the shared bytes are fixed): C not a
+    """No width is refused in fp32 (its shared bytes are fixed): C not a
     multiple of 4 moves in 4-byte pieces, Na in chunks, Nb over 96 in
     passes, Nc over 16 in groups; unaligned operands too."""
-    plan = _plan(1000, F32, **widths)
-    assert plan.passes == -(-widths["nb"] // 96)
     off = torch.zeros(17)[1:]  # 4 bytes past an allocation's start
-    K2._check_k2_launch(plan, (off,), widths["c"], widths["na"],
-                        widths["nb"], widths["nc"], F32)
+    _check(widths, (off,), F32)
 
 
 # ------------------- the twin against the TPU kernel -------------------
@@ -182,14 +100,22 @@ def nh_interpret():
     NH.INTERPRET = False
 
 
+# the narrow widths, and the bf16 kernel's widest: Na MAX_NA (16 chunks of
+# 32 columns), Nb 128 with Nc 16 (its limits on pre2's and out's columns)
+TWIN_WIDTHS = {**NARROW, "na512": dict(MODEL, na=K2.MAX_NA),
+               "nb128-nc16": dict(MODEL, nb=128, nc=16)}
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 @pytest.mark.parametrize("save_h1", [False, True])
-@pytest.mark.parametrize("widths", list(NARROW.values()), ids=list(NARROW))
+@pytest.mark.parametrize("widths", list(TWIN_WIDTHS.values()),
+                         ids=list(TWIN_WIDTHS))
 def test_twin_matches_pallas_at_narrow_widths(nh_interpret, widths, save_h1,
                                               dtype):
     """The twin of K2 / K2' against ``_fwd_call`` in interpret mode at
-    widths the bf16 tensor-core kernel pads (M 512: ``_pick_tile`` takes
-    multiples of 256). fp32: 1e-5 of the range (summation order). bf16:
+    widths the bf16 tensor-core kernel pads and at its widest (M 512:
+    ``_pick_tile`` takes multiples of 256). fp32: 1e-5 of the range
+    (summation order). bf16:
     h1 and h2 are rounded on both sides and JAX scales the input LeakyReLU
     by bf16(0.1) where the port uses fp32 0.1 before its one rounding, so
     one flipped rounding (2**-8) moves a result: 2**-6 of the range."""
@@ -222,21 +148,34 @@ def test_twin_matches_pallas_at_narrow_widths(nh_interpret, widths, save_h1,
                                atol=bar(ref_h1))
 
 
+# C 3 and 99 (x rows in 4-byte pieces) at narrow widths; at the model's
+# other widths, Na 520 (a part-filled chunk of a width not a multiple of 4),
+# Nb 200 with Nc 40 (three passes over Nb, three groups of Nc) and Nc 17
+FP32_UNALIGNED = {"3": dict(c=3, na=72, nb=24, nc=3),
+                  "99": dict(c=99, na=72, nb=24, nc=3),
+                  "na520": dict(MODEL, na=K2.MAX_NA + 8),
+                  "nb200-nc40": dict(MODEL, nb=200, nc=40),
+                  "nc17": dict(MODEL, nc=17)}
+
+
 @pytest.mark.parametrize("save_h1", [False, True])
-@pytest.mark.parametrize("c", [3, 99])
-def test_twin_matches_pallas_fp32_at_unaligned_channels(nh_interpret, c,
+@pytest.mark.parametrize("widths", list(FP32_UNALIGNED.values()),
+                         ids=list(FP32_UNALIGNED))
+def test_twin_matches_pallas_fp32_at_unaligned_channels(nh_interpret, widths,
                                                         save_h1):
-    """The fp32 twin against ``_fwd_call`` in interpret mode at C 3 and 99,
-    whose x rows the fp32 kernel moves in 4-byte pieces (the card tests
-    hold the kernel against this twin there): out and h1 at 1e-5 of their
-    range (summation order only)."""
-    xs, was, ba, wb, bb, wc, bc = _inputs(c, 2, c=c, na=72, nb=24, nc=3)
+    """The fp32 twin against ``_fwd_call`` in interpret mode at the widths
+    the fp32 kernel takes in its slow ways (``FP32_UNALIGNED``; the card
+    tests hold the kernel against this twin there): out and h1 at 1e-5 of
+    their range (summation order only)."""
+    w = dict(widths)
+    w.pop("k", None)
+    xs, was, ba, wb, bb, wc, bc = _inputs(w["c"], 2, **w)
     j = lambda a: jnp.asarray(a)
-    out, h1 = NH._fwd_call([j(x) for x in xs], [j(w) for w in was],
+    out, h1 = NH._fwd_call([j(x) for x in xs], [j(v) for v in was],
                            j(ba)[None], j(wb), j(bb)[None], j(wc), j(bc)[None],
                            tm=256, interpret=True, save_h1=save_h1)
     tt = lambda a: torch.from_numpy(np.array(a, np.float32))
-    got, got_h1 = K2.nin_head_fwd([tt(x) for x in xs], [tt(w) for w in was],
+    got, got_h1 = K2.nin_head_fwd([tt(x) for x in xs], [tt(v) for v in was],
                                   tt(ba), tt(wb), tt(bb), tt(wc), tt(bc),
                                   save_h1=save_h1)
     for g, r in ((got, out), (got_h1, h1)) if save_h1 else ((got, out),):

@@ -1,4 +1,5 @@
-"""The port's kernels K1 (shifted conv) and K2 (fused 1x1 head).
+"""The port's kernels K1 (shifted conv) and K2 (fused 1x1 head), and K3
+(the head's backward) at ragged M.
 
 On the CPU each wrapper computes its plain PyTorch twin, and the twins are
 held here against the JAX package's Pallas kernels run in interpret mode —
@@ -7,6 +8,7 @@ kernels themselves run only on the card, where ``tests/test_torch_cuda.py``
 holds them against their twins. Nothing in ssdn_tpu changes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,14 +160,58 @@ def test_k2_twin_matches_pallas_bf16(nh_interpret, k, n_out):
                                atol=2 ** -6 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("m", [300, 1000])
-def test_k2_twin_ragged_m_matches_lax_reference(m):
+# ragged M the card tests run the head kernels at: part-filled 128-row
+# tiles (1 to 129, 1,000, 4,133), one weight-grad split of 4,095 rows and
+# two of 2,049 + 2,048 (K3); none is a multiple of 256, the Pallas kernel's
+# tile rule
+RAGGED_M = [1, 63, 65, 127, 129, 300, 1000, 4133]
+K3_RAGGED_M = [1, 63, 65, 127, 129, 4095, 4097, 4133]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("m", RAGGED_M)
+def test_k2_twin_ragged_m_matches_lax_reference(m, k):
     """An M that is no multiple of 256 (the Pallas kernel's tile rule):
     the twin against the JAX oracle ``lax_reference`` at fp32."""
-    jargs = _k2_jax(_k2_inputs(m, m, 4, 10))
+    jargs = _k2_jax(_k2_inputs(m, m, k, 10))
     ref = np.asarray(NH.lax_reference(*jargs))
     got = K2.fused_nin_head(*_k2_torch(jargs))
     np.testing.assert_allclose(got.numpy(), ref, **TOL32)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("m", K3_RAGGED_M)
+def test_k3_twin_ragged_m_matches_lax_reference(m, k):
+    """The twin of K3 at ragged M: dx_i, the weight grads and the bias
+    grads against ``jax.vjp`` of the JAX oracle ``lax_reference`` at fp32
+    (summation order only). The twin is fed h1 as ``lax_reference``
+    computes it, so both sides mask the same elements of pre1 (the twin of
+    K2''s h1 sums in another order, and one element near zero flips a row
+    of dx_i by a factor 10). dx_i, sums over one row, at ``TOL32``; the
+    weight and bias grads, sums over M rows, at 1e-5 of each one's range
+    (``test_torch_train_kernels.py``'s fp32 bar: over 4,000 rows the order
+    moves an element near zero by ~2e-5)."""
+    jargs = _k2_jax(_k2_inputs(m + k, m, k, 10))
+    g = np.random.default_rng(m).standard_normal((m, 10)).astype(np.float32)
+    _, vjp = jax.vjp(NH.lax_reference, *jargs)
+    jdx, jdwa, *jrest = vjp(jnp.asarray(g))
+    jxs, jwas, jba = jargs[:3]
+    h1 = NH._lrelu(jnp.dot(NH._lrelu(jnp.concatenate(jxs, axis=-1)),
+                           jnp.concatenate(jwas, axis=0)) + jba)
+    xs, was, _, wb, bb, wc, _ = _k2_torch(jargs)
+    before = K2.launches_bwd
+    dxs, dwas, dba, dwb, dbb, dwc, dbc = K2.nin_head_bwd(
+        xs, was, torch.from_numpy(np.array(h1)), wb, bb, wc,
+        torch.from_numpy(g))
+    assert K2.launches_bwd == before  # CPU: the twin
+    got = [*dxs, *dwas, dba, dwb, dbb, dwc, dbc]
+    ref = [*jdx, *jdwa, *jrest]
+    assert len(got) == len(ref) == 2 * k + 5
+    for i, (t, r) in enumerate(zip(got, ref)):
+        assert t.dtype == torch.float32 and t.shape == r.shape, i
+        r = np.asarray(r)
+        tol = TOL32 if i < k else dict(rtol=0, atol=1e-5 * np.abs(r).max())
+        np.testing.assert_allclose(t.numpy(), r, **tol, err_msg=str(i))
 
 
 def test_k2_wrapper_validation():

@@ -229,15 +229,31 @@ def test_k3_twin_matches_pallas(nh_interpret, dtype, k):
                                    atol=_head_bar(r, dtype), err_msg=str(i))
 
 
+# (k, C, Na, Nb, Nc): widths that are not multiples of 16, which the bf16
+# tensor-core kernels pad in shared memory; the narrow model config's head;
+# and the widths the card tests run the bf16 kernels at past the model's:
+# Na MAX_NA, Nc 40 and 64 (a window of Wc^T), Nb 128, 200 and 600 (passes
+# over Nb, one warpgroup), Nc 500 (windows of Nc)
+K3_TWIN_WIDTHS = {"c40-na72-nb24-nc3": (2, 40, 72, 24, 3),
+                  "c96-na512-nb96-nc10": (2, 96, 512, 96, 10),
+                  "c16-na32-nb16-nc9": (2, 16, 32, 16, 9),
+                  "nc40": (2, 96, 384, 96, 40),
+                  "nc64": (2, 96, 384, 96, 64),
+                  "nb128": (2, 96, 384, 128, 10),
+                  "nb200-nc40": (2, 96, 384, 200, 40),
+                  "na64-nb600": (2, 96, 64, 600, 10),
+                  "na512-nc500": (2, 96, 512, 96, 500)}
+
+
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_k3_twin_matches_pallas_at_narrow_widths(nh_interpret, dtype):
-    """The head backward at widths that are not multiples of 16 (C 40,
-    Na 72, Nb 24, Nc 3; k 2), which the bf16 tensor-core kernels pad in
-    shared memory: the twin against the TPU kernel, at
-    ``test_k3_twin_matches_pallas``'s bars."""
-    k, c, na, nb = 2, 40, 72, 24
+@pytest.mark.parametrize("widths", list(K3_TWIN_WIDTHS.values()),
+                         ids=list(K3_TWIN_WIDTHS))
+def test_k3_twin_matches_pallas_at_narrow_widths(nh_interpret, widths, dtype):
+    """The head backward at ``K3_TWIN_WIDTHS``: the twin against the TPU
+    kernel, at ``test_k3_twin_matches_pallas``'s bars."""
+    k, c, na, nb, nc = widths
     xs, was, ba, wb, bb, wc, bc, g = _jax_head(
-        _head_inputs(30, k, 3, c=c, na=na, nb=nb), dtype)
+        _head_inputs(30, k, nc, c=c, na=na, nb=nb), dtype)
     _, h1 = NH._fwd_call(xs, was, ba[None], wb, bb[None], wc, bc[None],
                          tm=256, interpret=True, save_h1=True)
     ref = NH._bwd_call(xs, was, h1, wb, bb[None], wc, g, tm=256,
@@ -248,7 +264,7 @@ def test_k3_twin_matches_pallas_at_narrow_widths(nh_interpret, dtype):
         _torch_of(g))
     got = [*got[0], *got[1], *got[2:]]
     shapes = [(M, c)] * k + [(c, na)] * k + [(na,), (na, nb), (nb,),
-                                             (nb, 3), (3,)]
+                                             (nb, nc), (nc,)]
     assert [tuple(t.shape) for t in got] == shapes
     for i, (t, r) in enumerate(zip(got, ref)):
         r = np.asarray(r, np.float32).reshape(t.shape)
