@@ -47,7 +47,14 @@ which fails the run (non-zero exit) on any error:
    profiles one request and one step per arm (device busy and idle share),
    and each kernel per request against its bound, its twin and a library
    yardstick (the kernels line: the bf16 model's numbers, the fp32 model's
-   under ``per_request_fp32`` / ``per_train_step_fp32``);
+   under ``per_request_fp32`` / ``per_train_step_fp32``); the bf16 trunk
+   conv's epilogue (``conv_epilogue``, forward and backward) per batch-384
+   step and per 768x512 request against its bound and twin (and equal to
+   the twin), and the pad fold's A/B at the step's shifted convs; its
+   launches are counted on the main paths themselves ([4], [5], [7]-[9]:
+   12 + 12 a square bf16 step, 14 + 14 under the torch-ops head, 5 + 5
+   plus the head's 2 + 2 beside K1, 24 a non-square bf16 request, none in
+   fp32), and the kernels line gives them by path;
 7. the Trainer path: the flagship at full width from random init (RGB,
    Gaussian sigma 25 known, 64x64 patches at batch 384, stabilized
    objective, bf16 trunk) trains 40 steps with eval (``synthetic:4:512``)
@@ -140,6 +147,10 @@ ARMS = {"lax": ("lax", "lax"), "head_pallas": ("lax", "pallas"),
         "conv_pallas": ("pallas", "lax")}
 DEVICE = "cuda"
 K1_PER_TRUNK = 12    # enc0-enc6 and dec5b-dec1b; dec*a stay on torch ops
+# the bf16 trunk conv's epilogue (bf16 channels_last only, never fp32):
+# enc0, enc6, dec5a-dec1a, dec5b-dec1b a trunk call; dec5a-dec1a alone
+# where K1 runs the rest; the torch-ops head's nin_a, nin_b once a forward
+EPI_PER_TRUNK, EPI_PER_TRUNK_K1, EPI_TORCH_HEAD = 12, 5, 2
 TRAIN_BATCH = 384    # the flagship training batch (bench.py's headline)
 PATCH = 64           # training patch side
 TRAIN_STEPS = 30     # steps per arm on the training path
@@ -537,24 +548,30 @@ def serve(torch, models, report):
     out, per_arm = {}, {}
     reset_counts()
     for (name, arm), fn in fns.items():
-        k1_0, k2_0 = K1.launches, K2.launches
+        before = read_counts()
         params = models[name][1]
         out[name, arm] = [full.denoise_image(fn, params, y, sigma_vec(s))
                           for _, y, s in reqs[name]]
-        per_arm[name, arm] = (K1.launches - k1_0, K2.launches - k2_0)
-    launches = {"k1": K1.launches, "k2": K2.launches}
+        after = read_counts()
+        per_arm[name, arm] = tuple(after[k] - before[k]
+                                   for k in ("k1", "k2", "epi", "epi_bwd"))
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("k1", "k2", "epi")}
     report["main_path_launches"] = launches
     report["main_path_launches_per_arm"] = {
-        f"{name}/{arm}": dict(zip(("k1", "k2"), n))
+        f"{name}/{arm}": dict(zip(("k1", "k2", "epi", "epi_bwd"), n))
         for (name, arm), n in per_arm.items()}
-    print(f"  main path launches: K1 {launches['k1']}, K2 {launches['k2']}")
+    print(f"  main path launches: K1 {launches['k1']}, K2 {launches['k2']}, "
+          f"conv epilogue {launches['epi']}")
 
-    for (name, arm), (k1n, k2n) in per_arm.items():
-        n = len(reqs[name])
+    for (name, arm), got in per_arm.items():
+        n = len(reqs[name])   # each non-square: two trunk calls a request
+        bf16 = models[name][0].model.compute_dtype == "bfloat16"
         want = {"lax": (0, 0), "head_pallas": (0, n),
-                "conv_pallas": (2 * K1_PER_TRUNK * n, 0)}[arm]
-        check((k1n, k2n) == want,
-              f"{name}/{arm}: launches K1 {k1n}, K2 {k2n}, expected {want}")
+                "conv_pallas": (2 * K1_PER_TRUNK * n, 0)}[arm] + (
+                    n * epi_per_forward(arm, 2, bf16), 0)
+        check(got == want, f"{name}/{arm}: launches K1, K2, epilogue "
+                           f"forward, backward {got}, expected {want}")
     rows = []
     for name, (cfg, _) in models.items():
         # fp32: both arms true fp32, only summation order differs; bf16: the
@@ -744,18 +761,42 @@ def time_kernels(torch, calls, launches, report, reps=10):
 
 
 def reset_counts():
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
     from ssdn_tpu_torch.kernels import nin_head as K2
     from ssdn_tpu_torch.kernels import shifted_conv as K1
 
     K1.launches = K2.launches = K2.launches_save_h1 = K2.launches_bwd = 0
+    E.launches = E.launches_bwd = 0
 
 
 def read_counts():
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
     from ssdn_tpu_torch.kernels import nin_head as K2
     from ssdn_tpu_torch.kernels import shifted_conv as K1
 
     return {"k1": K1.launches, "k2": K2.launches,
-            "k2_save_h1": K2.launches_save_h1, "k3": K2.launches_bwd}
+            "k2_save_h1": K2.launches_save_h1, "k3": K2.launches_bwd,
+            "epi": E.launches, "epi_bwd": E.launches_bwd}
+
+
+def epi_per_forward(arm, trunk_calls=1, bf16=True):
+    """The conv epilogue's launches in one forward of ``arm`` with
+    ``trunk_calls`` trunk calls (1 square, 2 non-square), and as many in
+    its backward: 0 in fp32; K1's arm leaves it dec5a-dec1a; the torch-ops
+    head (the lax head, and every head beside K1) adds nin_a and nin_b."""
+    if not bf16:
+        return 0
+    conv, head = ARMS[arm]
+    per_trunk = EPI_PER_TRUNK_K1 if conv == "pallas" else EPI_PER_TRUNK
+    fused_head = head == "pallas" and conv != "pallas"
+    return per_trunk * trunk_calls + (0 if fused_head else EPI_TORCH_HEAD)
+
+
+def epi_counts(arm, steps, forwards=0, bf16=True):
+    """{"epi", "epi_bwd"} of ``steps`` square training steps and
+    ``forwards`` more square forwards (evals) of ``arm``."""
+    e = epi_per_forward(arm, 1, bf16)
+    return dict(epi=e * (steps + forwards), epi_bwd=e * steps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1184,9 +1225,11 @@ def train_agreement(torch, models, report):
                 counts = read_counts()
                 report.setdefault("train_agreement_launches", {})[
                     f"{name}/{wname}/{arm}"] = counts
-                want = (dict(k1=0, k2=0, k2_save_h1=1, k3=1)
-                        if arm == "head_pallas" else
-                        dict(k1=K1_PER_TRUNK, k2=0, k2_save_h1=0, k3=0))
+                want = dict((dict(k1=0, k2=0, k2_save_h1=1, k3=1)
+                             if arm == "head_pallas" else
+                             dict(k1=K1_PER_TRUNK, k2=0, k2_save_h1=0, k3=0)),
+                            **epi_counts(arm, 1,
+                                         bf16=dtype == "bfloat16"))
                 check(counts == want, f"{name}/{wname}/{arm} step 0: "
                                       f"launches {counts}, expected {want}")
                 twin = _step0(torch, cfg, params, arm, batch, twins=True)
@@ -1306,8 +1349,8 @@ def train(torch, models, report):
             "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n),
             "conv_pallas": dict(k1=K1_PER_TRUNK * n, k2=0, k2_save_h1=0, k3=0)}
     for arm, counts in per_arm.items():
-        check(counts == want[arm], f"{arm}: training launches {counts}, "
-                                   f"expected {want[arm]}")
+        w = dict(want[arm], **epi_counts(arm, n))
+        check(counts == w, f"{arm}: training launches {counts}, expected {w}")
     for r in rows:
         check(r["finite"], f"{r['arm']}: non-finite loss or params")
         check(r["last5"] < r["first5"], f"{r['arm']}: the loss did not fall "
@@ -1350,9 +1393,11 @@ def train_reference_fp32(torch, models, report):
               f"{r['arm']} {r['ms_per_step']:.2f} ms/step "
               f"{r['patches_per_s']:.1f} patches/s" for r in rows))
     n = REF_WARM + REF_STEPS
-    want = {"lax": dict(k1=0, k2=0, k2_save_h1=0, k3=0),
-            "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n),
-            "conv_pallas": dict(k1=K1_PER_TRUNK * n, k2=0, k2_save_h1=0, k3=0)}
+    none = dict(epi=0, epi_bwd=0)   # fp32: the epilogue never runs
+    want = {"lax": dict(k1=0, k2=0, k2_save_h1=0, k3=0, **none),
+            "head_pallas": dict(k1=0, k2=0, k2_save_h1=n, k3=n, **none),
+            "conv_pallas": dict(k1=K1_PER_TRUNK * n, k2=0, k2_save_h1=0, k3=0,
+                                **none)}
     for arm, counts in launches.items():
         check(counts == want[arm], f"reference {arm}: launches {counts}, "
                                    f"expected {want[arm]}")
@@ -1382,6 +1427,161 @@ def profile_train_step(torch, models, report):
               f"{wall[arm]:7.2f} ms, idle {idle:5.1%}: "
               + ", ".join(f"{k[:30]} {ms:.2f}" for k, ms, _ in top[:3]))
     report["train_profile"] = out
+
+
+# ------------------------- the bf16 trunk conv's epilogue -------------------------
+
+
+def epilogue_layers(h, w):
+    """The epilogue's launches in one trunk call on (h, w) images, as (name,
+    C, H, W, Hc, shift, act): enc0 and enc6 (crop), the decoder's sums
+    dec5a..dec1a, dec5b..dec2b (crop) and dec1b (crop and shift, a
+    pre-activation under the fused head)."""
+    layers = [("enc0", 48, h, w, h + 2, 0, True),
+              ("enc6", 48, h // 32, w // 32, h // 32 + 2, 0, True)]
+    for s in (5, 4, 3, 2, 1):
+        hh, ww = h >> (s - 1), w >> (s - 1)
+        layers.append((f"dec{s}a", 96, hh, ww, hh, 0, True))
+        layers.append((f"dec{s}b", 96, hh, ww, hh + 2, int(s == 1), s > 1))
+    return layers
+
+
+def epilogue_bytes(n, c, h, w, hc, shift, act):
+    """(forward, backward) bytes the kernels must move: each element of c,
+    g and out they read once, of out and dpre they write once (bf16)."""
+    live = n * (h - shift) * w * c * 2
+    return live + n * h * w * c * 2, live * (2 if act else 1) + n * hc * w * c * 2
+
+
+def time_epilogue(torch, calls, reps):
+    """Forward and backward epilogue (kernel, twin) over ``calls`` = [(n,
+    layer)], CUDA events, against their bounds (bytes / 3.35 TB/s)."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+
+    tot = dict(fwd_ms=0.0, bwd_ms=0.0, fwd_plain_ms=0.0, bwd_plain_ms=0.0,
+               fwd_bound_ms=0.0, bwd_bound_ms=0.0)
+    layers = []
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    for n, (name, c, h, w, hc, shift, act) in calls:
+        slope = 0.1 if act else None
+        cl = torch.channels_last
+        c0 = torch.randn((n, c, hc, w), generator=g, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        b = torch.randn((c,), generator=g, device=DEVICE)
+        gr = torch.randn((n, c, h, w), generator=g, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        out = E.epilogue_fwd(c0, b, h, shift, slope)
+        check(torch.equal(out, E.torch_reference(c0, b, h, shift, slope))
+              and torch.equal(E.epilogue_bwd(gr, out, hc, shift, slope),
+                              E.torch_reference_bwd(gr, out, hc, shift, slope)),
+              f"conv epilogue differs from its twin at {name} n {n}")
+        fb, bb = epilogue_bytes(n, c, h, w, hc, shift, act)
+        row = dict(
+            layer=name, shape=f"n {n} C {c} {h}x{w} from {hc} rows, shift "
+            f"{shift}, act {act}",
+            fwd_ms=cuda_ms(torch, lambda: E.epilogue_fwd(c0, b, h, shift,
+                                                         slope), reps),
+            bwd_ms=cuda_ms(torch, lambda: E.epilogue_bwd(gr, out, hc, shift,
+                                                         slope), reps),
+            fwd_plain_ms=cuda_ms(torch, lambda: E.torch_reference(
+                c0, b, h, shift, slope), reps),
+            bwd_plain_ms=cuda_ms(torch, lambda: E.torch_reference_bwd(
+                gr, out, hc, shift, slope), reps),
+            fwd_bound_ms=fb / PEAK_BYTES * 1e3, bwd_bound_ms=bb / PEAK_BYTES * 1e3)
+        layers.append(row)
+        for f in tot:
+            tot[f] += row[f]
+        del c0, gr, out
+    return dict(tot, layers=layers)
+
+
+def pad_fold_ab(torch, n, reps):
+    """The pad fold's A/B at the step's shifted 3x3 convs (n images): (A)
+    ``F.pad`` then a VALID conv, its backward, and the pad's backward copy
+    of dx; (B) the conv with cuDNN's symmetric padding (2, 1) over H + 2
+    output rows and its backward with the same padding. CUDA events of
+    forward + backward per layer, bf16 channels_last."""
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    layers = [("enc0", 3, 48, 64), ("enc6", 48, 48, 2), ("dec5b", 96, 96, 4),
+              ("dec4b", 96, 96, 8), ("dec3b", 96, 96, 16),
+              ("dec2b", 96, 96, 32), ("dec1b", 96, 96, 64)]
+    rows, tot = [], {"pad_valid_ms": 0.0, "folded_ms": 0.0}
+    for name, cin, cout, h in layers:
+        x = torch.randn((n, cin, h, h), generator=g, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        w = (torch.randn((cout, cin, 3, 3), generator=g, device=DEVICE)
+             * 0.1).to(torch.bfloat16)
+        dc = torch.randn((n, cout, h, h), generator=g, device=DEVICE).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        dcf = torch.zeros((n, cout, h + 2, h), device=DEVICE,
+                          dtype=torch.bfloat16).contiguous(memory_format=cl)
+        dcf[:, :, :h] = dc
+        mask = (True, True, False)
+
+        def pad_valid():
+            xp = F.pad(x, (1, 1, 2, 0))
+            F.conv2d(xp, w)
+            dxp, _, _ = torch.ops.aten.convolution_backward(
+                dc, xp, w, None, (1, 1), (0, 0), (1, 1), False, (0, 0), 1,
+                mask)
+            F.pad(dxp, (-1, -1, -2, 0))
+
+        def folded():
+            F.conv2d(x, w, None, 1, (2, 1))
+            torch.ops.aten.convolution_backward(
+                dcf, x, w, None, (1, 1), (2, 1), (1, 1), False, (0, 0), 1,
+                mask)
+
+        row = dict(layer=name, n=n, cin=cin, cout=cout, h=h,
+                   pad_valid_ms=cuda_ms(torch, pad_valid, reps),
+                   folded_ms=cuda_ms(torch, folded, reps))
+        rows.append(row)
+        for f in tot:
+            tot[f] += row[f]
+        print(f"    pad fold {name:<6} {n}x{cin}->{cout} at {h}x{h}: "
+              f"F.pad + VALID {row['pad_valid_ms']:.3f} ms, folded "
+              f"{row['folded_ms']:.3f} ms")
+        del x, dc, dcf
+    return dict(tot, layers=rows)
+
+
+def conv_epilogue_row(torch, report, reps=10):
+    """The conv epilogue's kernels line entry: forward and backward per
+    batch-384 training step (12 launches each way: four rotations in a
+    batch of 1536 64x64 images) and per 768x512 request (two trunk calls of
+    2 images, 24 forward), against their bounds and twins; the pad fold's
+    A/B at the step's shapes. Its launches are the main paths' own, read
+    by ``read_counts`` ([4], [5], [7]-[9]) and filled in by ``main``."""
+    n = 4 * TRAIN_BATCH
+    step = time_epilogue(torch, [(n, l) for l in epilogue_layers(PATCH, PATCH)],
+                         reps)
+    kh, kw = KODAK
+    request = time_epilogue(
+        torch, [(2, l) for l in epilogue_layers(kh, kw) + epilogue_layers(kw, kh)],
+        reps)
+    for key, t in (("train_step", step), ("request", request)):
+        print(f"  conv_epilogue per {key}: forward {t['fwd_ms']:.3f} ms "
+              f"(bound {t['fwd_bound_ms']:.3f}, twin {t['fwd_plain_ms']:.3f}),"
+              f" backward {t['bwd_ms']:.3f} ms (bound {t['bwd_bound_ms']:.3f},"
+              f" twin {t['bwd_plain_ms']:.3f}), "
+              f"{len(t['layers'])} launches each way")
+    ab = pad_fold_ab(torch, n, reps)
+    print(f"  pad fold per step: F.pad + VALID {ab['pad_valid_ms']:.3f} ms, "
+          f"folded {ab['folded_ms']:.3f} ms")
+    report["conv_epilogue"] = dict(train_step=step, request=request,
+                                   pad_fold=ab)
+    return dict(
+        name="conv_epilogue", route="cuda",
+        source="ssdn_tpu_torch/csrc/conv_epilogue.cu", replaces=None,
+        ms=step["fwd_ms"] + step["bwd_ms"],
+        plain_ms=step["fwd_plain_ms"] + step["bwd_plain_ms"],
+        bound_ms=step["fwd_bound_ms"] + step["bwd_bound_ms"],
+        bound_by="bytes", per=f"one batch-{TRAIN_BATCH} training step",
+        dtype="bfloat16", per_request={f: request[f] for f in (
+            "fwd_ms", "fwd_plain_ms", "fwd_bound_ms")})
 
 
 def k3_cost(torch, xs, was, h1, wb, wc):
@@ -1685,9 +1885,13 @@ def run_trainer(torch, report, kept):
                        seconds=time.perf_counter() - t0)
 
     want = {"conv": dict(k1=K1_PER_TRUNK * (TRAINER_STEPS + eval_forwards),
-                         k2=0, k2_save_h1=0, k3=0),
+                         k2=0, k2_save_h1=0, k3=0,
+                         **epi_counts("conv_pallas", TRAINER_STEPS,
+                                      eval_forwards)),
             "head": dict(k1=0, k2=eval_forwards, k2_save_h1=TRAINER_STEPS,
-                         k3=TRAINER_STEPS)}
+                         k3=TRAINER_STEPS,
+                         **epi_counts("head_pallas", TRAINER_STEPS,
+                                      eval_forwards))}
     for arm, counts in launches.items():
         check(counts == want[arm], f"Trainer {arm} arm: launches {counts}, "
                                    f"expected {want[arm]}")
@@ -1790,7 +1994,8 @@ def run_trainer(torch, report, kept):
           and bool(np.isfinite(got[0]).all()),
           "cli.denoise --workdir: no finite 768x512 output")
     check(written.shape == (*KODAK, 3), f"denoised file {written.shape}")
-    check(launches["denoise"]["k1"] == 2 * K1_PER_TRUNK,
+    check(launches["denoise"]["k1"] == 2 * K1_PER_TRUNK
+          and launches["denoise"]["epi"] == epi_per_forward("conv_pallas", 2),
           f"cli.denoise --workdir: launches {launches['denoise']}")
 
     out["samplers"] = sampler_rates()
@@ -1880,7 +2085,7 @@ def tiled_arms(torch, models, report):
     clean, noisy = tiled_image(*TILED_HW)
     pv = sigma_vec(25.0)
     noisy_db = psnr(noisy, clean)
-    launches, rows = {"k1": 0, "k2": 0}, []
+    launches, rows = {"k1": 0, "k2": 0, "epi": 0}, []
     for name in MODELS:
         cfg, params = models[name]
         bf16 = cfg.model.compute_dtype == "bfloat16"
@@ -1896,11 +2101,13 @@ def tiled_arms(torch, models, report):
             secs = time.perf_counter() - t0
             for k in launches:
                 launches[k] += counts[k]
+            # each window: one non-square forward (two trunk calls)
             want = {"lax": (0, 0), "head_pallas": (0, wins),
-                    "conv_pallas": (2 * K1_PER_TRUNK * wins, 0)}[arm]
-            got = (counts["k1"], counts["k2"])
-            check(got == want, f"tiled {name}/{arm}: launches K1, K2 {got}, "
-                               f"expected {want}")
+                    "conv_pallas": (2 * K1_PER_TRUNK * wins, 0)}[arm] + (
+                        wins * epi_per_forward(arm, 2, bf16),)
+            got = (counts["k1"], counts["k2"], counts["epi"])
+            check(got == want, f"tiled {name}/{arm}: launches K1, K2, "
+                               f"epilogue {got}, expected {want}")
             check(seq.shape == clean.shape and bool(np.isfinite(seq).all()),
                   f"tiled {name}/{arm}: shape {seq.shape} or not finite")
             row = dict(model=name, arm=arm, windows=wins, k1=got[0],
@@ -2089,7 +2296,8 @@ def export_served(torch, kept, report):
     print(f"  [8f] export_pretrained of [7]'s conv-arm workdir (step "
           f"{meta['step']}): served 768x512 through K1 ({counts['k1']} "
           f"launches), bits of cli.denoise --workdir: {same}")
-    check(counts["k1"] == 2 * K1_PER_TRUNK,
+    check(counts["k1"] == 2 * K1_PER_TRUNK
+          and counts["epi"] == epi_per_forward("conv_pallas", 2),
           f"exported model: launches {counts}")
     check(same, "the exported artifact serves another image than its "
                 f"workdir: max abs {report['export']['max_abs']:.3e}")
@@ -2105,8 +2313,9 @@ def run_tiled(torch, models, kept, report):
     export_served(torch, kept, report)
     report["tiled_launches"] = launches
     report["tiled_seconds"] = time.perf_counter() - t0
-    print(f"  tiled path launches: K1 {launches['k1']}, K2 {launches['k2']}; "
-          f"[8] took {report['tiled_seconds']:.1f} s")
+    print(f"  tiled path launches: K1 {launches['k1']}, K2 {launches['k2']}, "
+          f"conv epilogue {launches['epi']}; [8] took "
+          f"{report['tiled_seconds']:.1f} s")
     return launches
 
 
@@ -2452,12 +2661,15 @@ def dp_training(torch, report):
         "conv": init_state(config_from_args(build_parser().parse_args(
             dp_cli_argv("x"))), device="cpu").params,
         "head": init_state(dp_head_cfg(), device="cpu").params}
-    want = {"conv": dict(k1=K1_PER_TRUNK * DP_STEPS, k2=0, k2_save_h1=0, k3=0),
-            "head": dict(k1=0, k2=0, k2_save_h1=DP_STEPS, k3=DP_STEPS)}
+    want = {"conv": dict(k1=K1_PER_TRUNK * DP_STEPS, k2=0, k2_save_h1=0, k3=0,
+                         **epi_counts("conv_pallas", DP_STEPS)),
+            "head": dict(k1=0, k2=0, k2_save_h1=DP_STEPS, k3=DP_STEPS,
+                         **epi_counts("head_pallas", DP_STEPS))}
     for arm, counts in one[0]["arms"].items():
         check(counts["counts"] == want[arm],
               f"[9] single-process {arm} arm: launches {counts['counts']}")
-    launches = {"k1": 0, "k2": 0, "k2_save_h1": 0, "k3": 0}
+    launches = {"k1": 0, "k2": 0, "k2_save_h1": 0, "k3": 0, "epi": 0,
+                "epi_bwd": 0}
     rows = []
     for tag, world, backend in worlds:
         root = f"{DIST_DIR}/dp_{tag}"
@@ -2530,7 +2742,7 @@ def sharded_tiling(torch, models, report):
                 params, y, pv)
     torch.cuda.empty_cache()   # the ranks are processes of their own
     worlds = dist_worlds(torch, [("9c", 1, None), ("9c", 2, "gloo")])
-    launches, rows, messages = {"k1": 0, "k2": 0}, [], {}
+    launches, rows, messages = {"k1": 0, "k2": 0, "epi": 0}, [], {}
     for tag, world, backend in worlds:
         root = f"{DIST_DIR}/sharded_{world}_{backend or 'nccl'}"
         ranks = launch_world("sharded", root, world, backend,
@@ -2565,6 +2777,7 @@ def sharded_tiling(torch, models, report):
                                    f" launches K1, K2 {got}, expected {want}")
                 launches["k1"] += got[0]
                 launches["k2"] += got[1]
+                launches["epi"] += rc["counts"]["epi"]   # recorded only
             outs[key] = np.load(f"{root}/{key}.npy")
         for i, call in enumerate(ranks[0]["calls"]):
             key = call["key"]
@@ -2707,6 +2920,7 @@ def main(argv=None) -> int:
     profile_train_step(torch, models, report)
     kernel_line = time_kernels(torch, calls, launches, report)
     kernel_line += training_line(report, train_timing, train_launches)
+    epilogue_entry = conv_epilogue_row(torch, report)
     del calls
     torch.cuda.empty_cache()
 
@@ -2775,9 +2989,32 @@ def main(argv=None) -> int:
             entry["launches"] += counts.get(kind, 0)
     shutil.rmtree(DIST_DIR, ignore_errors=True)
 
+    # the epilogue's launches on each main path, forward and backward
+    per_path = {
+        "serving": report["main_path_launches"]["epi"],
+        "training": (train_launches["epi"], train_launches["epi_bwd"]),
+        "reference_training_fp32": sum(
+            c["epi"] + c["epi_bwd"]
+            for c in report["reference_train_launches"].values()),
+        "trainer": tuple(trainer["conv"][k] + trainer["head"][k]
+                         for k in ("epi", "epi_bwd")),
+        "tiled": tiled["epi"],
+        "dp_training": (dist["dp_training"]["epi"],
+                        dist["dp_training"]["epi_bwd"]),
+        "sharded": dist["sharded"]["epi"]}
+    check(all(per_path[k] for k in ("serving", "training", "trainer", "tiled",
+                                    "dp_training"))
+          and per_path["reference_training_fp32"] == 0,
+          f"the conv epilogue did not launch on a bf16 path, or launched in "
+          f"fp32: {per_path}")
+    epilogue_entry["launches_by_path"] = per_path
+    epilogue_entry["launches"] = sum(
+        sum(v) if isinstance(v, tuple) else v for v in per_path.values())
+    report["conv_epilogue"]["launches_by_path"] = per_path
     if args.report:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1, default=str)
+    kernel_line.append(epilogue_entry)
     print(card)
     print(json.dumps({"kernels": kernel_line}))
     print(json.dumps({"ok": True, "device": {

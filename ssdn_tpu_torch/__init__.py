@@ -12,9 +12,13 @@ the tools:
   zoo.py      reads the bundled ``ssdn_tpu/pretrained/*.npz`` artifacts by
               path, and writes artifacts in the same layout
   ops/        shifted conv / pool / upsample, rotation fold (torch ops)
+  numerics.py what ops/ and kernels/ share (precision contract, layout,
+              LeakyReLU and a conv's epilogue in torch ops); kernels/
+              imports nothing of ops/
   kernels/    hand-written CUDA kernels K1 (shifted conv), K2/K2' (1x1 head
-              forward) and K3 (its backward), each with its plain PyTorch
-              twin and an autograd entry point; built lazily with nvcc
+              forward), K3 (its backward) and the bf16 trunk conv's
+              epilogue, each with its plain PyTorch twin and an autograd
+              entry point; built lazily with nvcc
   models/     the blind-spot U-Net; weights carried from JAX trees
   estimator/  the NLL losses and the Bayesian posterior means (fp32)
   noise/      noise injection on the batch's device

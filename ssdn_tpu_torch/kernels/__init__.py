@@ -2,11 +2,14 @@
 
 K1 ``shifted_conv.shifted_conv3x3_bias_act``; K2 ``nin_head.fused_nin_head``
 (inference) and ``nin_head.nin_head_fwd`` (training, saves h1); K3
-``nin_head.nin_head_bwd``. Each wrapper launches its kernel on CUDA tensors
-(building it on first use through ``_build``) or raises, and computes its
-plain PyTorch twin on CPU tensors. The differentiable entry points are
+``nin_head.nin_head_bwd``; and one with no TPU counterpart, the bf16 trunk
+conv's epilogue ``conv_epilogue.epilogue_fwd`` / ``epilogue_bwd``. Each
+wrapper launches its kernel on CUDA tensors (building it on first use
+through ``_build``) or raises, and computes its plain PyTorch twin on CPU
+tensors. The differentiable entry points are
 ``shifted_conv.fused_shifted_conv`` and ``nin_head.nin_head`` (autograd
-Functions with the JAX package's custom backwards). Importing this package
+Functions with the JAX package's custom backwards) and
+``conv_epilogue.conv_bias_act`` / ``bias_act``. Importing this package
 builds nothing.
 """
 
@@ -22,5 +25,6 @@ def refuse_graph_cut(kernel: str, *tensors: torch.Tensor) -> None:
         raise RuntimeError(
             f"{kernel}: an input requires grad and grad mode is on, but a "
             "kernel launch is not recorded by autograd; call the "
-            "differentiable entry point (fused_shifted_conv / nin_head)"
+            "differentiable entry point (fused_shifted_conv / nin_head / "
+            "conv_bias_act / bias_act)"
         )

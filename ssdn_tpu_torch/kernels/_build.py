@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ssdn_tpu_torch")
-SOURCES = ("shifted_conv", "nin_head", "nin_head_bwd")
+SOURCES = ("shifted_conv", "nin_head", "nin_head_bwd", "conv_epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ssdn_tpu_torch.kernels import refuse_graph_cut
-from ssdn_tpu_torch.ops.shifted import _precision
+from ssdn_tpu_torch.numerics import precision_scope
 
 #: Number of CUDA launches of K1 since the last reset (set it to 0 to reset).
 launches = 0
@@ -289,9 +289,9 @@ def shifted_conv_bwd(x, w, out, g, negative_slope: float = 0.1):
     g = g.float()
     dpre = torch.where(torch.signbit(out), negative_slope * g, g).to(x.dtype)
     w_rot = w.flip(2, 3).transpose(0, 1)  # (Cin, Cout, 3, 3)
-    with _precision(x.dtype, "highest"):
+    with precision_scope(x.dtype, "highest"):
         dx = _conv_acc_f32(F.pad(dpre, (1, 1, 0, 2)), w_rot)
-    with _precision(torch.float32, "highest"):  # true fp32, TF32 off
+    with precision_scope(torch.float32, "highest"):  # true fp32, TF32 off
         # the nine tap contractions are one weight-gradient conv
         dw = torch.nn.grad.conv2d_weight(
             F.pad(x, (1, 1, 2, 0)).float(), w.shape, dpre.float())

@@ -213,11 +213,9 @@ def _branch(params: Params, x: torch.Tensor, *, shifted: bool,
             # the kernel writes its input dtype: cast to the compute dtype
             h = h.to(compute_dtype).contiguous(memory_format=torch.channels_last)
             return fused_shifted_conv(h, p["w"], p["b"], negative_slope=0.1)
-        return leaky_relu(
-            conv2d(h, p["w"], p["b"], shifted=shifted,
-                   down_shift=down_shift,
-                   out_dtype=compute_dtype, precision=conv_precision)
-        )
+        return conv2d(h, p["w"], p["b"], shifted=shifted,
+                      down_shift=down_shift, negative_slope=0.1,
+                      out_dtype=compute_dtype, precision=conv_precision)
 
     def conv_pool(name, h):
         """pool(lrelu(conv)) computed as lrelu(pool(conv)): LeakyReLU is
@@ -244,11 +242,10 @@ def _branch(params: Params, x: torch.Tensor, *, shifted: bool,
     for stage, skip in zip((5, 4, 3, 2, 1), reversed(skips)):
         if fuse_dec:
             p = params[f"dec{stage}a"]
-            h = leaky_relu(
-                shifted_upsample_concat_conv(
-                    h, skip.to(compute_dtype), p["w"], p["b"],
-                    out_dtype=compute_dtype, precision=conv_precision,
-                )
+            h = shifted_upsample_concat_conv(
+                h, skip.to(compute_dtype), p["w"], p["b"],
+                negative_slope=0.1, out_dtype=compute_dtype,
+                precision=conv_precision,
             )
         else:
             h = upsample_2x_nearest(h)
@@ -340,10 +337,12 @@ def apply(params: Params, x: torch.Tensor, *, blindspot: bool = True,
     # torch-ops head: nin_a/nin_b in the compute dtype; nin_c accumulates in
     # fp32 (matmul_acc_f32) so mu/Sigma leave the network as fp32
     f = rotation_unfold(ys, groups)
-    f = leaky_relu(conv2d(f, params["nin_a"]["w"], params["nin_a"]["b"],
-                          out_dtype=compute_dtype, precision=conv_precision))
-    f = leaky_relu(conv2d(f, params["nin_b"]["w"], params["nin_b"]["b"],
-                          out_dtype=compute_dtype, precision=conv_precision))
+    f = conv2d(f, params["nin_a"]["w"], params["nin_a"]["b"],
+               negative_slope=0.1, out_dtype=compute_dtype,
+               precision=conv_precision)
+    f = conv2d(f, params["nin_b"]["w"], params["nin_b"]["b"],
+               negative_slope=0.1, out_dtype=compute_dtype,
+               precision=conv_precision)
     p = params["nin_c"]
     # the fp32 matrix: matmul_acc_f32 casts it to the compute dtype and
     # returns its grad in fp32, as the JAX custom VJP does

@@ -24,7 +24,7 @@ from typing import Sequence
 
 import torch
 
-from ssdn_tpu_torch.ops.shifted import _memory_format
+from ssdn_tpu_torch.numerics import layout_of
 
 
 def rot90(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -114,7 +114,7 @@ class _Unfold(torch.autograd.Function):
         src = {k: y[j * b:(j + 1) * b]
                for y, ks in zip(ys, groups) for j, k in enumerate(ks)}
         ctx.groups, ctx.rows, ctx.order = groups, rows, order
-        ctx.like = [(y.shape, y.dtype, y.device, _memory_format(y))
+        ctx.like = [(y.shape, y.dtype, y.device, layout_of(y))
                     for y in ys]
         dev = ys[0].device
         if rows:
@@ -128,7 +128,7 @@ class _Unfold(torch.autograd.Function):
                      1, _rotation_index(*src[k].shape[2:], -k, dev))
                  ).view(-1, c) for k in order)
         out = torch.empty((b, c * len(order), h, w), dtype=ys[0].dtype,
-                          device=dev, memory_format=_memory_format(ys[0]))
+                          device=dev, memory_format=layout_of(ys[0]))
         for i, k in enumerate(order):
             dst = _pixels(out[:, i * c:(i + 1) * c])
             if k == 0:

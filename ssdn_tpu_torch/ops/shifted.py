@@ -25,15 +25,12 @@ output to bf16, the same contract as the TPU's MXU path.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
-
-def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
-    """LeakyReLU(0.1) used after every conv except the final 1x1 [P][N2N]."""
-    return torch.where(x >= 0, x, negative_slope * x)
+from ssdn_tpu_torch.kernels import conv_epilogue
+from ssdn_tpu_torch.numerics import (epilogue_ops, layout_of, leaky_relu,
+                                     precision_scope)
 
 
 def shift_down(x: torch.Tensor, rows: int = 1) -> torch.Tensor:
@@ -45,29 +42,9 @@ def shift_down(x: torch.Tensor, rows: int = 1) -> torch.Tensor:
     return F.pad(x, (0, 0, rows, -rows))
 
 
-@contextlib.contextmanager
-def _precision(dtype: torch.dtype, precision: str | None):
-    """fp32 inputs at precision "highest" (the default) run with TF32 off
-    for both cuDNN convs and cuBLAS matmuls; "high"/"default" allow TF32.
-    Precision tiers only apply to fp32 (the flags do not touch bf16)."""
-    if dtype != torch.float32:
-        yield
-        return
-    allow = (precision or "highest") != "highest"
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
-
-
 class _ConvAtPrecision(torch.autograd.Function):
     """VALID conv2d of fp32 operands whose backward (the input- and
-    weight-gradient convs) runs under the same ``_precision`` as its
+    weight-gradient convs) runs under the same ``precision_scope`` as its
     forward. Plain autograd would run them later, outside the forward's
     context, at whatever TF32 setting the process has (cuDNN's default is
     TF32 on)."""
@@ -76,7 +53,7 @@ class _ConvAtPrecision(torch.autograd.Function):
     def forward(ctx, x, w, precision):
         ctx.save_for_backward(x, w)
         ctx.precision = precision
-        with _precision(x.dtype, precision):
+        with precision_scope(x.dtype, precision):
             return F.conv2d(x, w)
 
     @staticmethod
@@ -84,7 +61,7 @@ class _ConvAtPrecision(torch.autograd.Function):
         x, w = ctx.saved_tensors
         # the op plain autograd calls for F.conv2d, with the same arguments
         # (so the same algorithms and bits), inside the forward's precision
-        with _precision(x.dtype, ctx.precision):
+        with precision_scope(x.dtype, ctx.precision):
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 g, x, w, None, (1, 1), (0, 0), (1, 1), False, (0, 0), 1,
                 (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
@@ -108,10 +85,12 @@ def conv2d(
     *,
     shifted: bool = False,
     down_shift: int = 0,
+    negative_slope: float | None = None,
     out_dtype: torch.dtype | None = None,
     precision: str | None = None,
 ) -> torch.Tensor:
-    """2-D conv, NCHW x OIHW -> NCHW, SAME width padding, fp32 accumulation.
+    """2-D conv, NCHW x OIHW -> NCHW, SAME width padding, fp32 accumulation,
+    then ``leaky_relu(., negative_slope)`` where a slope is given.
 
     shifted=True pads the top by (Kh - 1) and the bottom by 0, so output
     row r reads input rows r-(Kh-1) .. r. down_shift=k (shifted only) folds
@@ -121,6 +100,13 @@ def conv2d(
 
     The bias is added after the conv in the output dtype (not inside
     cuDNN's epilogue), matching the JAX op's rounding points in bf16.
+
+    A conv with a bias that ends in the activation or the shift runs, for
+    bf16 channels_last CUDA input (``conv_epilogue.takes``) and odd kernels,
+    as one cuDNN conv with symmetric padding whose epilogue (the crop, the
+    bias, the shift and the activation) is one hand-written pass each way
+    (``conv_epilogue.conv_bias_act``): the same bits, given the same conv
+    sum. Elsewhere (the CPU, fp32, NCHW) the torch ops below run.
     """
     kh, kw = w.shape[2], w.shape[3]
     if shifted:
@@ -130,16 +116,15 @@ def conv2d(
             raise ValueError("down_shift requires shifted=True")
         hpad = ((kh - 1) // 2, kh // 2)
     wpad = ((kw - 1) // 2, kw // 2)
+    if (b is not None and (negative_slope is not None or down_shift)
+            and out_dtype in (None, x.dtype) and kh % 2 and kw % 2
+            and conv_epilogue.takes(x, w.shape[0])):
+        return conv_epilogue.conv_bias_act(
+            x, w, b, padding=(kh - 1 if shifted else hpad[0], wpad[0]),
+            shift=down_shift, negative_slope=negative_slope)
     xp = F.pad(x, (wpad[0], wpad[1], hpad[0], hpad[1]))
     out = _conv_valid(xp, w.to(x.dtype), precision)
-    if b is not None:
-        out = out + b.to(out.dtype).view(1, -1, 1, 1)
-    if down_shift:
-        row = torch.arange(out.shape[2], device=out.device)
-        out = out * (row >= down_shift).to(out.dtype).view(1, 1, -1, 1)
-    if out_dtype is not None:
-        out = out.to(out_dtype)
-    return out
+    return epilogue_ops(out, b, down_shift, negative_slope, out_dtype)
 
 
 def maxpool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +154,7 @@ class _MatmulAccF32(torch.autograd.Function):
     Its products are true fp32 products for fp32 operands (what the port's
     fp32 contract and the CPU give): cuBLAS reads
     ``torch.backends.cuda.matmul.allow_tf32``, so they run with that flag
-    False (``_precision(x.dtype, "highest")``) rather than relying on the
+    False (``precision_scope(x.dtype, "highest")``) rather than relying on the
     process to keep PyTorch's default. bf16 operands, upcast exactly, fit
     TF32's mantissa; for them the flag is left as the process has it."""
 
@@ -178,7 +163,7 @@ class _MatmulAccF32(torch.autograd.Function):
         w_lp = w.to(x.dtype)
         ctx.save_for_backward(x, w_lp)
         ctx.w_dtype = w.dtype
-        with _precision(x.dtype, "highest"):
+        with precision_scope(x.dtype, "highest"):
             return torch.matmul(x.float(), w_lp.float())
 
     @staticmethod
@@ -186,7 +171,7 @@ class _MatmulAccF32(torch.autograd.Function):
         x, w_lp = ctx.saved_tensors
         gl = g.to(x.dtype)
         dx = dw = None
-        with _precision(x.dtype, "highest"):
+        with precision_scope(x.dtype, "highest"):
             if ctx.needs_input_grad[0]:
                 dx = torch.matmul(gl, w_lp.t())
             if ctx.needs_input_grad[1]:
@@ -250,7 +235,7 @@ class _PixelShuffle(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, r):
         n, c, h, w = x.shape
-        ctx.r, ctx.fmt = r, _memory_format(x)
+        ctx.r, ctx.fmt = r, layout_of(x)
         out = torch.empty((n, c // (r * r), h * r, w * r), dtype=x.dtype,
                           device=x.device, memory_format=ctx.fmt)
         _phases(out, r).copy_(_channels(x, r))
@@ -264,12 +249,6 @@ class _PixelShuffle(torch.autograd.Function):
                          device=g.device, memory_format=ctx.fmt)
         _channels(dx, r).copy_(_phases(g, r))
         return dx, None
-
-
-def _memory_format(t: torch.Tensor) -> torch.memory_format:
-    if t.is_contiguous(memory_format=torch.channels_last):
-        return torch.channels_last
-    return torch.contiguous_format
 
 
 def _channels(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -298,11 +277,13 @@ def shifted_upsample_concat_conv(
     w: torch.Tensor,
     b: torch.Tensor | None = None,
     *,
+    negative_slope: float | None = None,
     out_dtype: torch.dtype | None = None,
     precision: str | None = None,
 ) -> torch.Tensor:
-    """conv2d(cat([upsample_2x_nearest(h), skip], 1), w, b, shifted=True)
-    computed exactly, without materializing the upsample or the concat.
+    """conv2d(cat([upsample_2x_nearest(h), skip], 1), w, b, shifted=True,
+    negative_slope=negative_slope) computed exactly, without materializing
+    the upsample or the concat.
 
     h: (N, Cup, Hc, Wc) coarse features; skip: (N, Cskip, 2Hc, 2Wc);
     w: (Cout, Cup + Cskip, 3, 3) — the SAME parameters as the unfused path.
@@ -314,7 +295,10 @@ def shifted_upsample_concat_conv(
     through an lhs-dilated conv with a remapped (4, 6) kernel, a form XLA's
     TPU lowering prefers; cuDNN has no lhs dilation, and the phase conv
     plus depth-to-space is its direct equivalent. The skip part is a
-    standard shifted conv; both add into the same output.
+    standard shifted conv; both add into the same output. Where the sum is
+    bf16 channels_last on CUDA and a bias and slope are given, the bias and
+    the activation are one hand-written pass each way
+    (``conv_epilogue.bias_act``), at the torch ops' rounding points.
     """
     cup = h.shape[1]
     w_up = w[:, :cup]
@@ -325,8 +309,8 @@ def shifted_upsample_concat_conv(
     skip_part = conv2d(skip.to(h.dtype), w_skip, None, shifted=True,
                        precision=precision)
     out = up + skip_part
-    if b is not None:
-        out = out + b.to(out.dtype).view(1, -1, 1, 1)
-    if out_dtype is not None:
-        out = out.to(out_dtype)
-    return out
+    if (b is not None and negative_slope is not None
+            and out_dtype in (None, out.dtype)
+            and conv_epilogue.takes(out, out.shape[1])):
+        return conv_epilogue.bias_act(out, b, negative_slope)
+    return epilogue_ops(out, b, 0, negative_slope, out_dtype)

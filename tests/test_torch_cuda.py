@@ -1083,3 +1083,236 @@ def test_pixel_shuffle_keeps_channels_last_on_the_card(cuda, dtype):
     ref.backward(g)
     assert xa.grad.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(xa.grad, xb.grad)
+
+
+# ------------------------- the bf16 trunk conv's epilogue -------------------------
+
+# (n, hc, h, w, c, shift, act): a step's crops (hc = h + 2) and dec1b's
+# shift, the decoder's bias + activation (hc = h), the torch-ops head's
+# 1x1 convs; ragged sizes (N*H*W*C not a multiple of a block's vectors),
+# the narrowest widths the kernel takes (C 8, 16, 24: one to three
+# vectors a pixel) and rows shorter than the shift's
+EPI_CASES = [(3, 7, 5, 7, 48, 0, True), (2, 18, 16, 16, 96, 0, True),
+             (2, 66, 64, 64, 96, 1, True), (2, 66, 64, 64, 96, 1, False),
+             (5, 9, 9, 11, 96, 0, True), (1, 6, 4, 1920, 48, 0, True),
+             (2, 13, 11, 3, 8, 0, True), (3, 7, 5, 9, 24, 1, True),
+             (2, 4, 2, 2, 48, 0, True), (1, 3, 1, 5, 16, 1, False),
+             (1536, 4, 2, 2, 48, 0, True)]
+
+
+def _epi_operands(case, seed):
+    n, hc, h, w, c, shift, act = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    c0 = torch.randn((n, c, hc, w), generator=g, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    c0[0, :, 0, 0] = -0.0
+    c0[-1, :, -1, -1] = 0.0
+    b = torch.randn((c,), generator=g, device="cuda") * 0.5
+    b[0] = -0.0
+    gr = torch.randn((n, c, h, w), generator=g, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    gr[0, :, -1, 0] = -0.0
+    return c0, b, gr
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("case", EPI_CASES, ids=lambda c: "x".join(
+    str(int(v)) for v in c))
+def test_conv_epilogue_matches_twin_bit_for_bit(cuda, case):
+    """The kernel pair against its twins (the torch ops, on the card) on
+    the same c and g: the same bit patterns (signs of zero included),
+    forward and backward, each launch counted once."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+
+    n, hc, h, w, c, shift, act = case
+    slope = 0.1 if act else None
+    c0, b, gr = _epi_operands(case, sum(case))
+    before = (E.launches, E.launches_bwd)
+    out = E.epilogue_fwd(c0, b, h, shift, slope)
+    dpre = E.epilogue_bwd(gr, out, hc, shift, slope)
+    torch.cuda.synchronize()
+    assert (E.launches, E.launches_bwd) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (n, c, h, w) and dpre.shape == c0.shape
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert dpre.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(_bits(out),
+                       _bits(E.torch_reference(c0, b, h, shift, slope)))
+    assert torch.equal(_bits(dpre), _bits(
+        E.torch_reference_bwd(gr, out, hc, shift, slope)))
+
+
+def test_conv_epilogue_refuses_what_it_does_not_take(cuda):
+    """NCHW, fp32 and a bias of the wrong size raise before launching; the
+    launcher refuses C % 8 != 0 and an operand off a 16-byte boundary (no
+    narrower path runs unseen), and ``takes`` keeps such widths on the
+    torch ops; a kernel launch refuses to cut the autograd graph."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+
+    c0, b, gr = _epi_operands((2, 6, 4, 8, 16, 0, True), 0)
+    c20, b20, g20 = _epi_operands((2, 6, 4, 8, 20, 0, True), 0)
+
+    def off(t):
+        """t as a channels_last view one element past an allocation's start."""
+        n, c, h, w = t.shape
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+        v.copy_(t)
+        assert v.is_contiguous(memory_format=torch.channels_last)
+        assert v.data_ptr() % 16
+        return v
+
+    assert E.takes(c0, 16) and E.takes(c0, 96)
+    assert not any(E.takes(t, ch) for t, ch in (
+        (c0, 20), (c0, 3), (c0.contiguous(), 16), (c0.float(), 16)))
+    before = (E.launches, E.launches_bwd)
+    with pytest.raises(ValueError, match="launcher refuses"):
+        E.epilogue_fwd(c20, b20, 4)
+    with pytest.raises(ValueError, match="launcher refuses"):
+        E.epilogue_bwd(g20, g20, 6, 0, 0.1)
+    with pytest.raises(ValueError, match="launcher refuses"):
+        E.epilogue_fwd(off(c0), b, 4)
+    with pytest.raises(ValueError, match="launcher refuses"):
+        E.epilogue_bwd(gr, off(gr), 6, 0, 0.1)
+    aligned = E._like(off(c0), c0)
+    assert aligned.data_ptr() % 16 == 0 and torch.equal(aligned, c0)
+    with pytest.raises(ValueError, match="channels_last"):
+        E.epilogue_fwd(c0.contiguous(), b, 4)
+    with pytest.raises(ValueError, match="bf16"):
+        E.epilogue_fwd(c0.float(), b, 4)
+    with pytest.raises(ValueError):
+        E.epilogue_fwd(c0, b[:8], 4)
+    with pytest.raises(ValueError, match="channels_last"):
+        E.epilogue_bwd(gr.contiguous(), gr, 6, 0, 0.1)
+    with pytest.raises(RuntimeError, match="kernel launch"):
+        E.epilogue_fwd(c0.requires_grad_(True), b, 4)
+    assert (E.launches, E.launches_bwd) == before
+
+
+def _epilogue_model(dtype, shape, backward, head="pallas"):
+    """Launches of the epilogue in one forward of the published widths on
+    the card (and, with ``backward``, the gradients of every parameter),
+    and the output and gradients."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+
+    params = bu.init_params(torch.Generator().manual_seed(0), 3, 9,
+                            device="cuda")
+    leaves = [t.requires_grad_(backward) for leaf in params.values()
+              for t in leaf.values()]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).cuda()
+    before = (E.launches, E.launches_bwd)
+    with torch.set_grad_enabled(backward):
+        out = bu.apply(params, x, compute_dtype=dtype, head_backend=head)
+        grads = (torch.autograd.grad(out.square().sum(), leaves)
+                 if backward else ())
+    torch.cuda.synchronize()
+    return (E.launches - before[0], E.launches_bwd - before[1]), out, grads
+
+
+@pytest.mark.parametrize("dtype,shape,backward,head,launches", [
+    (torch.bfloat16, (8, 64, 64, 3), True, "pallas", (12, 12)),
+    (torch.bfloat16, (2, 64, 64, 3), True, "lax", (14, 14)),
+    (torch.bfloat16, (1, 1088, 1920, 3), False, "pallas", (24, 0)),
+    (torch.float32, (8, 64, 64, 3), True, "pallas", (0, 0)),
+], ids=["bf16_train", "bf16_torch_ops_head", "bf16_full_hd", "fp32_train"])
+def test_conv_epilogue_launches_at_every_covered_conv(cuda, dtype, shape,
+                                                      backward, head,
+                                                      launches):
+    """enc0, enc6, dec5a..dec1a and dec5b..dec1b (and the torch-ops head's
+    nin_a / nin_b) take the epilogue once forward and once backward in a
+    bf16 step; a full-HD request's two trunk calls take it 24 times; fp32
+    never."""
+    assert _epilogue_model(dtype, shape, backward, head)[0] == launches
+
+
+def test_bf16_model_with_the_epilogue_matches_the_torch_ops(cuda,
+                                                            monkeypatch):
+    """The bf16 model's output and gradients with the epilogue against the
+    torch ops it replaces on the card (``takes`` false): the folded convs
+    sum in other orders, so within bf16's parity tolerance, not bits."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+
+    _, got, got_g = _epilogue_model(torch.bfloat16, (4, 64, 64, 3), True)
+    monkeypatch.setattr(E, "takes", lambda t, c: False)
+    n, ref, ref_g = _epilogue_model(torch.bfloat16, (4, 64, 64, 3), True)
+    assert n == (0, 0)
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+    for a, r in zip(got_g, ref_g):
+        torch.testing.assert_close(a, r, rtol=2e-2,
+                                   atol=2e-2 * float(r.abs().max()) + 1e-6)
+
+
+def _slope_vs_leaky_relu(op, args, dtype, fmt):
+    """(op(*args, negative_slope=0.1), leaky_relu(op(*args))), each with
+    the gradients of every argument, on the card in ``dtype`` and ``fmt``
+    under cuDNN's deterministic algorithms."""
+    from ssdn_tpu_torch.ops import shifted as S
+
+    runs = []
+    for fused in (True, False):
+        ts = [(t.to(dtype) if t.dim() < 4 else t.to(dtype).contiguous(
+            memory_format=fmt)).cuda().requires_grad_(True) for t in args]
+        out = (op(*ts, negative_slope=0.1) if fused
+               else S.leaky_relu(op(*ts), 0.1))
+        gout = torch.randn(out.shape,
+                           generator=torch.Generator().manual_seed(5)).to(out)
+        runs.append((out, torch.autograd.grad(out, ts, gout)))
+    return runs
+
+
+@pytest.mark.parametrize("dtype,fmt", [
+    (torch.float32, "nchw"), (torch.float32, "channels_last"),
+    (torch.bfloat16, "nchw")], ids=["fp32_nchw", "fp32_cl", "bf16_nchw"])
+@pytest.mark.parametrize("site", ["shifted", "dec1b", "unshifted", "1x1",
+                                  "decoder"])
+def test_fp32_step_takes_no_epilogue_and_keeps_its_bits(cuda, site, dtype,
+                                                        fmt):
+    """Where the kernel does not run (fp32 in either layout, bf16 NCHW),
+    ``conv2d`` and the fused decoder op with ``negative_slope`` give the
+    bits of ``leaky_relu`` applied after the op without it: the output and
+    the gradient of every operand, under cuDNN's deterministic algorithms,
+    with no epilogue launch. (bf16 channels_last takes the kernel: its
+    bits are held to the twin's by ``test_conv_epilogue_matches_twin_bit_
+    for_bit``.) The ref_fp32 step's state against the parent tree's is a
+    chip run of its own, recorded in PERF.md."""
+    from ssdn_tpu_torch.kernels import conv_epilogue as E
+    from ssdn_tpu_torch.ops import shifted as S
+
+    fmt = {"nchw": torch.contiguous_format,
+           "channels_last": torch.channels_last}[fmt]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 16, 24, generator=g)
+    b = torch.randn(32, generator=g)
+    if site == "decoder":
+        skip = torch.randn(2, 8, 32, 48, generator=g)
+        w = torch.randn(32, 24, 3, 3, generator=g) * 0.1
+        args = (x, skip, w, b)
+        op = S.shifted_upsample_concat_conv
+    else:
+        kw = {"shifted": dict(shifted=True),
+              "dec1b": dict(shifted=True, down_shift=1),
+              "unshifted": {}, "1x1": {}}[site]
+        k = 1 if site == "1x1" else 3
+        args = (x, torch.randn(32, 16, k, k, generator=g) * 0.1, b)
+        op = lambda *a, **o: S.conv2d(*a, **kw, **o)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    before = (E.launches, E.launches_bwd)
+    try:
+        (got, got_g), (ref, ref_g) = _slope_vs_leaky_relu(op, args, dtype,
+                                                          fmt)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert (E.launches, E.launches_bwd) == before
+    assert got.dtype == ref.dtype and torch.equal(_bits32(got), _bits32(ref))
+    for a, r in zip(got_g, ref_g):
+        assert a.dtype == r.dtype and torch.equal(_bits32(a), _bits32(r))
+
+
+def _bits32(t):
+    """t's bit patterns (signs of zero included) as integers."""
+    t = t.contiguous()
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
